@@ -1,0 +1,38 @@
+"""Carry state across from the JAX package, as numpy arrays.
+
+The tests feed the same state to ``sparsetpu`` and to the port and compare
+like with like; these two functions translate the JAX package's host forms
+into the port's, without importing jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .csr import HostCSR, SEMIRINGS
+
+
+def csr_from_jax_host(row_ptr, col_idx, limbs, nnz: int, n_rows: int,
+                      n_cols: int, sr_name: str) -> HostCSR:
+    """The port's HostCSR from the numpy arrays of a JAX ``HostCSR`` or of a
+    ``SparseCSR``'s fields: capacity padding is cut at ``nnz`` and the u64
+    semiring's two uint32 limbs (lo, hi) are joined into uint64."""
+    if sr_name not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {sr_name!r}; have {SEMIRINGS}")
+    nnz = int(nnz)
+    lo = np.asarray(limbs[0])[:nnz]
+    if sr_name == "f32":
+        vals = lo.astype(np.float32)
+    else:
+        vals = lo.astype(np.uint64)
+        if sr_name == "u64":
+            vals |= np.asarray(limbs[1])[:nnz].astype(np.uint64) << np.uint64(32)
+    return HostCSR(np.asarray(row_ptr, np.int64),
+                   np.asarray(col_idx)[:nnz].astype(np.int32),
+                   vals, int(n_rows), int(n_cols), sr_name)
+
+
+def dense_from_row_planes(planes, n_cols: int) -> np.ndarray:
+    """JAX's (n, S, 128) row-plane P or C -> plain (n, n_cols)."""
+    planes = np.asarray(planes)
+    return planes.reshape(planes.shape[0], -1)[:, :n_cols]

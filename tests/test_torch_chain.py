@@ -1,0 +1,158 @@
+"""The port's chain driver (sparsetpu_torch.bench.chain), router and oracle
+loader against the JAX package, on the CPU at small sizes.
+
+Tolerance: exact equality throughout (``assert_array_equal``, ``==``): chain
+values are integers below 2^24 carried in f32, where every order of
+summation is exact, and routes and oracle outputs are discrete.
+"""
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from sparsetpu import U64, SparseCSR
+from sparsetpu import native as jnative
+from sparsetpu.bench import chain as jchain
+from sparsetpu.graphs import generate as jgen
+from sparsetpu.ops.hybrid import choose_strategy as jax_choose_strategy
+
+from sparsetpu_torch import native as tnative
+from sparsetpu_torch.bench import chain as tchain
+from sparsetpu_torch.csr import HostCSR
+from sparsetpu_torch.interop import csr_from_jax_host, dense_from_row_planes
+from sparsetpu_torch.ops.hybrid import choose_strategy
+
+
+@pytest.fixture(scope="module")
+def torus4():
+    """The 4^3 thinned torus in both packages, and the oracle's A^2..A^4."""
+    jh = jchain.build_torus_host(dims=(4, 4, 4))
+    th = tchain.build_torus_host(dims=(4, 4, 4))
+    stats, final = tchain.native_chain_stats_host(
+        th.row_ptr, th.col_idx, th.vals, th.n_rows, 4)
+    return jh, th, stats, final
+
+
+def test_port_torus_equals_jax_host_csr(torus4):
+    jh, th, _, _ = torus4
+    want = csr_from_jax_host(jh.row_ptr, jh.col_idx, jh.limbs, jh.nnz, jh.n, jh.n, "u64")
+    np.testing.assert_array_equal(th.row_ptr, want.row_ptr)
+    np.testing.assert_array_equal(th.col_idx, want.col_idx)
+    np.testing.assert_array_equal(th.vals, want.vals)
+
+
+def test_oracle_stats_match_jax(torus4):
+    jh, _, stats, final = torus4
+    want_stats, want_final = jchain.native_chain_stats_host(
+        jh.row_ptr, jh.col_idx, jh.vals_u64(), jh.n, 4)
+    assert stats == want_stats
+    for got, want in zip(final, want_final):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_oracle_spgemm_matches_jax_native():
+    rows, cols, vals, n = jgen.random_graph(200, 900, seed=4)
+    h = HostCSR.from_coo(rows, cols, vals, n)
+    a = tnative.as_host_csr(h.row_ptr, h.col_idx, h.vals)
+    got = tnative.spgemm(a, a, n)
+    want = jnative.spgemm(jnative.as_host_csr(h.row_ptr, h.col_idx, h.vals),
+                          jnative.as_host_csr(h.row_ptr, h.col_idx, h.vals), n)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert tnative.lib()._name.startswith(tnative.BUILD_DIR)
+
+
+def test_chain_cpu_matches_oracle_and_pallas(torus4):
+    jh, th, stats, final = torus4
+    results, p = tchain.run_chain_dense_acc(th, "cpu", max_step=4, iters=2,
+                                            native_stats=stats, verbose=False)
+    assert [(r.step, r.nnz, r.max_value) for r in results] == \
+        [(s, nnz, float(mx)) for s, nnz, mx, _ in stats]
+    # flops of A x P equal the oracle's P x A count on the symmetric torus
+    assert [r.flops for r in results] == [s[3] for s in stats]
+    assert all(r.seconds > 0 for r in results)
+    tchain.verify_final_values(p, final, sample_rows=64)
+    planes = jchain.chain_final_pallas(jh.to_device(), max_step=4, rows_per_tile=8)
+    want = dense_from_row_planes(jax.device_get(planes), jh.n)
+    np.testing.assert_array_equal(p.numpy(), want)
+    csv = tchain.chain_csv(results)
+    assert csv.count("\n") == 4  # header + A^2..A^4
+
+
+def test_chain_raises_on_oracle_disagreement(torus4):
+    _, th, stats, final = torus4
+    bad = [stats[0], (3, stats[1][1] + 1, *stats[1][2:]), stats[2]]
+    with pytest.raises(RuntimeError, match="A\\^3"):
+        tchain.run_chain_dense_acc(th, "cpu", max_step=4, iters=1,
+                                   native_stats=bad, verbose=False)
+    _, p = tchain.run_chain_dense_acc(th, "cpu", max_step=4, iters=1, verbose=False)
+    p[3, 5] += 1
+    with pytest.raises(RuntimeError):
+        tchain.verify_final_values(p, final)
+
+
+def _path_graph(n):
+    i = np.arange(n - 1)
+    return np.concatenate([i, i + 1]), np.concatenate([i + 1, i]), np.ones(2 * (n - 1), np.uint64), n
+
+
+GRAPHS = {
+    "torus4x4x4": (lambda: jgen.lattice([4, 4, 4], torus=True), "dense-acc"),
+    "path1000": (lambda: _path_graph(1000), "band"),
+    "random2000x2000": (lambda: jgen.random_graph(2000, 2000, seed=0), "esc"),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+@pytest.mark.parametrize("steps", [1, 6])
+def test_choose_strategy_matches_jax(name, steps):
+    make, route_at_one_step = GRAPHS[name]
+    rows, cols, vals, n = make()
+    a = SparseCSR.from_coo_host(rows, cols, vals, n, sr=U64)
+    got = choose_strategy(HostCSR.from_coo(rows, cols, vals, n), steps=steps)
+    assert got == jax_choose_strategy(a, steps=steps)
+    if steps == 1:
+        assert got == route_at_one_step
+
+
+def test_main_runs_on_cpu(tmp_path, capsys):
+    csv = tmp_path / "chain.csv"
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", "4", "--iters", "1",
+                          "--csv", str(csv)])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == record
+    assert record["metric"] == "spgemm_chain_A4_nnz_per_s" and record["verified"]
+    assert record["device"] == "cpu" and record["value"] > 0
+    assert sum(line.startswith("A^") for line in out) == 3
+    assert csv.read_text().count("\n") == 4
+
+
+def test_main_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tchain.main(["--quick", "--no-verify"])
+
+
+def test_main_refuses_unported_routes(monkeypatch):
+    for route in ("band", "esc"):
+        monkeypatch.setattr(tchain, "choose_strategy", lambda h, steps, r=route: r)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tchain.main(["--quick", "--device", "cpu", "--no-verify", "--steps", "3"])
+
+
+def test_port_never_imports_jax():
+    code = ("import sys; import sparsetpu_torch, sparsetpu_torch.bench.chain, "
+            "sparsetpu_torch.kernels.spmm, sparsetpu_torch.interop; "
+            "bad = sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
