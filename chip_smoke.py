@@ -6,14 +6,18 @@ card, nvcc and g++, builds every kernel and the C++ oracle from the sources
 in the checkout, and runs in phases; any failure raises and exits non-zero:
 
 1. card identity (nvidia-smi name and power limit, torch's device name);
-2. build of the CUDA kernel library and the oracle, with nvcc's report;
+2. build of the CUDA kernel library (one nvcc per source, in parallel) and
+   the oracle, with nvcc's report;
 3. each kernel against its plain PyTorch version, for exact equality
    (integer values below 2^24 carried in f32: every summation order is
-   exact, so the tolerance is 0), at four shapes;
-4. the port's main path at full scale: the 30^3 thinned-torus chain
-   A^2..A^7 through the router and ``run_chain_dense_acc``, every step's
-   (nnz, max) against the oracle and the published table, the final values
-   on 128 leading rows, and the kernel launch count of that run;
+   exact, so the tolerance is 0), at small shapes and on a row slice of
+   the 30^3 operand, with kernel and plain times;
+4. the port's three chains at full scale, each with every kernel count set
+   to 0 just before it and read just after: the router's dense-acc chain,
+   the fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
+   torus; every step's (nnz, max) against the oracle and the published
+   table, the final values on 128 leading rows (un-permuted for fold-band),
+   and at least one launch per step of the path's kernel;
 5. a JSON line per kernel, the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -23,6 +27,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 EXPECTED = [  # (step, nnz, max) of the 30^3 chain, exact on any device
@@ -31,6 +36,7 @@ EXPECTED = [  # (step, nnz, max) of the 30^3 chain, exact on any device
 ]
 STEPS = 7
 SLICE_ROWS = 256
+DIMS30 = (30, 30, 30)
 
 
 def check(cond, msg):
@@ -57,18 +63,39 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def compare(name, got, want) -> float:
+    """Exact equality of a kernel's result with its plain version's; returns
+    the max |error| (0.0)."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got, want), f"{name}: kernel != plain (max |err| {err})")
+    return err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
                          "smoke test needs a CUDA card")
     from sparsetpu_torch import native
     from sparsetpu_torch.bench.chain import (
-        build_torus_host, native_chain_stats_host, run_chain_dense_acc,
-        verify_final_values)
+        build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
+        run_chain_foldband, unfold_band, verify_final_values)
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
-    from sparsetpu_torch.kernels import _build, spmm
+    from sparsetpu_torch.kernels import _build, bandplanes, groupdot, spmm
     from sparsetpu_torch.ops.hybrid import choose_strategy
+
+    # the plain group-dot version contracts with torch.bmm: exact only in full
+    # f32, so TF32 stays off (the default, stated here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    counters = {"spmm_dense_acc": spmm, "spmm_band": bandplanes,
+                "spmm_group_dot": groupdot}
+
+    def reset_counts():
+        for mod in counters.values():
+            mod.LAUNCHES = 0
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -87,63 +114,140 @@ def main() -> None:
     native.lib()
     t_oracle = time.perf_counter() - t0
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"    nvcc: {line.strip()}")
     print(f"[2] built kernels in {t_kernels:.2f}s, oracle in {t_oracle:.2f}s", flush=True)
 
-    # ---- phase 3: kernel against plain version
+    # ---- phase 3: each kernel against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand_p(n_rows, n_cols):
         return torch.randint(0, 5, (n_rows, n_cols), generator=gen, device=dev,
                              dtype=torch.float32)
 
+    def rand_band(n, base, w, h):
+        """Random band matrix in a layout: zero outside |row - col| <= h."""
+        col = torch.from_numpy(base.astype(np.int64)).to(dev)[:, None] + \
+            torch.arange(w, device=dev)[None, :]
+        row = torch.arange(n, device=dev)[:, None]
+        return rand_p(n, w) * (((col - row).abs() <= h) & (col < n))
+
     rg_rows, rg_cols, rg_vals, rg_n = random_graph(300, 900, seed=1)
-    cases = [
-        ("torus 12^3", build_torus_host((12, 12, 12))),
-        ("torus 5x5x3 (n=75)", build_torus_host((5, 5, 3))),
+    small = [
+        ("torus 12^3", build_torus_host((12, 12, 12)), (12, 12, 12)),
+        ("torus 5x5x3 (n=75)", build_torus_host((5, 5, 3)), (5, 5, 3)),
         ("random_graph(300, 900), non-symmetric",
-         HostCSR.from_coo(rg_rows, rg_cols, rg_vals, rg_n)),
+         HostCSR.from_coo(rg_rows, rg_cols, rg_vals, rg_n), None),
     ]
-    max_err = 0.0
-    for name, h in cases:
+    err = {name: 0.0 for name in counters}
+    for name, h, _ in small:
         op = spmm.prepare_sparse_operand(h, dev)
         p = rand_p(h.n_cols, h.n_cols)
-        got = spmm.spmm_dense_acc(op, p)
-        want = spmm.spmm_dense_acc_reference(op, p)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        check(torch.equal(got, want), f"{name}: kernel != plain (max |err| {err})")
-        print(f"[3] {name}: n={h.n_rows} nnz={h.nnz} kernel == plain (exact)", flush=True)
+        err["spmm_dense_acc"] = max(err["spmm_dense_acc"], compare(
+            f"spmm_dense_acc, {name}", spmm.spmm_dense_acc(op, p),
+            spmm.spmm_dense_acc_reference(op, p)))
+        for r, g in ((40, 32), (8, 4)):
+            gop = groupdot.prepare_group_operand(h, dev, rows_per_tile=r, g=g)
+            err["spmm_group_dot"] = max(err["spmm_group_dot"], compare(
+                f"spmm_group_dot R={r} G={g}, {name}", groupdot.spmm_group_dot(gop, p),
+                groupdot.spmm_group_dot_reference(gop, p)))
+        print(f"[3] {name}: n={h.n_rows} nnz={h.nnz}: spmm_dense_acc and "
+              f"spmm_group_dot (R, G) = (40, 32), (8, 4) == plain (exact)", flush=True)
 
-    h30 = build_torus_host((30, 30, 30))
+    for name, h, dims in small[:2]:
+        a_f, h_a = fold(h, bandplanes.fold_perm(dims))
+        op = spmm.prepare_sparse_operand(a_f, dev)
+        n = h.n_rows
+        # the GPU quantum, an unaligned one (the scalar path), JAX's 1024
+        for q in (bandplanes.QUANTUM, 1, 1024):
+            total = -(-n // q) * q
+            for k in (1, 3):
+                b_in, w_in = bandplanes.band_layout(n, k * h_a, total, q)
+                b_out, w_out = bandplanes.band_layout(n, (k + 1) * h_a, total, q)
+                bop = bandplanes.prepare_band_operand(op, b_in, w_in, b_out, w_out,
+                                                      k * h_a)
+                p = rand_band(n, b_in, w_in, k * h_a)
+                err["spmm_band"] = max(err["spmm_band"], compare(
+                    f"spmm_band q={q} k={k}, {name}", bandplanes.spmm_band(bop, p),
+                    bandplanes.spmm_band_reference(bop, p)))
+        print(f"[3] {name} folded (h={h_a}): spmm_band == plain (exact) at "
+              f"quanta {bandplanes.QUANTUM}, 1, 1024, steps A^2 and A^4", flush=True)
+
+    h30 = build_torus_host(DIMS30)
+    n30 = h30.n_rows
+    timing = {}
+
+    # dense-acc on the 30^3 operand x a random P, rows 0..SLICE_ROWS
     op = spmm.prepare_sparse_operand(h30, dev)
     op_slice = spmm.row_slice(op, 0, SLICE_ROWS)
-    p = rand_p(h30.n_cols, h30.n_cols)
+    p = rand_p(n30, n30)
     full = spmm.spmm_dense_acc(op, p)
     sliced = spmm.spmm_dense_acc(op_slice, p)
     want = spmm.spmm_dense_acc_reference(op_slice, p)
-    torch.cuda.synchronize()
-    err = max(float((full[:SLICE_ROWS] - want).abs().max()),
-              float((sliced - want).abs().max()))
-    max_err = max(max_err, err)
-    check(torch.equal(full[:SLICE_ROWS], want) and torch.equal(sliced, want),
-          f"30^3 operand, rows 0..{SLICE_ROWS}: kernel != plain (max |err| {err})")
-    kernel_ms = time_ms(lambda: spmm.spmm_dense_acc(op_slice, p, out=sliced), 50)
-    plain_ms = time_ms(lambda: spmm.spmm_dense_acc_reference(op_slice, p), 10)
-    full_ms = time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 5)
-    print(f"[3] 30^3 operand (n={h30.n_rows} nnz={h30.nnz}) x random P, rows "
-          f"0..{SLICE_ROWS}: kernel == plain (exact); {SLICE_ROWS}-row slice: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; full operand "
-          f"kernel {full_ms:.4f} ms", flush=True)
-    del full, sliced, want, p, op, op_slice
-    torch.cuda.empty_cache()
+    err["spmm_dense_acc"] = max(err["spmm_dense_acc"],
+                                compare("spmm_dense_acc 30^3 rows", full[:SLICE_ROWS], want),
+                                compare("spmm_dense_acc 30^3 slice", sliced, want))
+    timing["spmm_dense_acc"] = (
+        time_ms(lambda: spmm.spmm_dense_acc(op_slice, p, out=sliced), 50),
+        time_ms(lambda: spmm.spmm_dense_acc_reference(op_slice, p), 10),
+        time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 5),
+        f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30})")
+    del full, sliced, want
 
-    # ---- phase 4: the main path at full scale
+    # group-dot at R = 40, G = 32 on the same P
+    slice_csr = HostCSR(h30.row_ptr[:SLICE_ROWS + 1],
+                        h30.col_idx[:h30.row_ptr[SLICE_ROWS]],
+                        h30.vals[:h30.row_ptr[SLICE_ROWS]], SLICE_ROWS, n30, h30.sr_name)
+    gop = groupdot.prepare_group_operand(h30, dev)
+    gop_slice = groupdot.prepare_group_operand(slice_csr, dev)
+    full = groupdot.spmm_group_dot(gop, p)
+    sliced = groupdot.spmm_group_dot(gop_slice, p)
+    want = groupdot.spmm_group_dot_reference(gop_slice, p)
+    err["spmm_group_dot"] = max(err["spmm_group_dot"],
+                                compare("spmm_group_dot 30^3 rows", full[:SLICE_ROWS], want),
+                                compare("spmm_group_dot 30^3 slice", sliced, want))
+    timing["spmm_group_dot"] = (
+        time_ms(lambda: groupdot.spmm_group_dot(gop_slice, p, out=sliced), 20),
+        time_ms(lambda: groupdot.spmm_group_dot_reference(gop_slice, p), 5),
+        time_ms(lambda: groupdot.spmm_group_dot(gop, p, out=full), 3),
+        f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30}), R=40 G=32, "
+        f"{gop.n_groups} groups in the full operand")
+    del full, sliced, want, p, op, op_slice, gop, gop_slice
+
+    # band: the widest step of the 30^3 fold-band chain, A^6 -> A^7 layouts
+    a_f, h_a = fold(h30, bandplanes.fold_perm(DIMS30))
+    q = bandplanes.QUANTUM
+    total = -(-n30 // q) * q
+    b_in, w_in = bandplanes.band_layout(n30, 6 * h_a, total, q)
+    b_out, w_out = bandplanes.band_layout(n30, 7 * h_a, total, q)
+    op = spmm.prepare_sparse_operand(a_f, dev)
+    bop = bandplanes.prepare_band_operand(op, b_in, w_in, b_out, w_out, 6 * h_a)
+    bop_slice = bandplanes.prepare_band_operand(
+        spmm.row_slice(op, 0, SLICE_ROWS), b_in, w_in, b_out[:SLICE_ROWS], w_out, 6 * h_a)
+    p = rand_band(n30, b_in, w_in, 6 * h_a)
+    full = bandplanes.spmm_band(bop, p)
+    sliced = bandplanes.spmm_band(bop_slice, p)
+    want = bandplanes.spmm_band_reference(bop_slice, p)
+    err["spmm_band"] = max(err["spmm_band"],
+                           compare("spmm_band 30^3 rows", full[:SLICE_ROWS], want),
+                           compare("spmm_band 30^3 slice", sliced, want))
+    timing["spmm_band"] = (
+        time_ms(lambda: bandplanes.spmm_band(bop_slice, p, out=sliced), 50),
+        time_ms(lambda: bandplanes.spmm_band_reference(bop_slice, p), 10),
+        time_ms(lambda: bandplanes.spmm_band(bop, p, out=full), 5),
+        f"folded 30^3 operand rows 0..{SLICE_ROWS}, A^6 -> A^7 layouts "
+        f"(w_in={w_in}, w_out={w_out}, h_a={h_a})")
+    del full, sliced, want, p, op, bop, bop_slice
+    torch.cuda.empty_cache()
+    for name, (k_ms, p_ms, f_ms, where) in timing.items():
+        print(f"[3] {name} on {where}: kernel == plain (exact); {SLICE_ROWS}-row slice: "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; full operand kernel "
+              f"{f_ms:.4f} ms", flush=True)
+
+    # ---- phase 4: the three chains at full scale
     t0 = time.perf_counter()
     stats, final = native_chain_stats_host(h30.row_ptr, h30.col_idx, h30.vals,
-                                           h30.n_rows, STEPS)
+                                           n30, STEPS)
     print(f"[4] oracle chain A^2..A^{STEPS}: {time.perf_counter() - t0:.1f}s", flush=True)
     check([tuple(s[:3]) for s in stats] == EXPECTED,
           f"oracle stats {[s[:3] for s in stats]} != published {EXPECTED}")
@@ -151,41 +255,62 @@ def main() -> None:
     print(f"[4] choose_strategy -> {strategy}", flush=True)
     check(strategy == "dense-acc", f"route is {strategy!r}, not 'dense-acc'")
 
-    spmm.LAUNCHES = 0
-    results, p_final = run_chain_dense_acc(h30, dev, max_step=STEPS, iters=3,
-                                           native_stats=stats)
-    torch.cuda.synchronize()
-    launches = spmm.LAUNCHES
-    got = [(r.step, r.nnz, int(r.max_value)) for r in results]
-    check(got == EXPECTED, f"chain (step, nnz, max) {got} != {EXPECTED}")
-    verify_final_values(p_final, final, sample_rows=128)
-    print(f"[4] per-step (nnz, max) == oracle == published table; final values == "
-          f"oracle on 128 leading rows", flush=True)
-    check(launches >= STEPS - 1, f"main path made {launches} kernel launches")
-    print(f"[4] spmm_dense_acc launches in the main path: {launches}", flush=True)
-    for r in results:
-        print(f"[4] A^{r.step} step: {r.seconds * 1e3:.4f} ms  "
-              f"({r.gb_per_s:.1f} GB/s of the byte model)", flush=True)
-    total_ms = sum(r.seconds for r in results) * 1e3
-    print(f"[4] chain total A^2..A^{STEPS}: {total_ms:.4f} ms", flush=True)
-    print(f"[4] A^{STEPS} nnz/s: {results[-1].nnz_per_s:.1f}", flush=True)
-    del p_final
-    torch.cuda.empty_cache()
+    paths = [
+        ("dense-acc", "spmm_dense_acc",
+         lambda: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=3, native_stats=stats)),
+        ("foldband", "spmm_band",
+         lambda: run_chain_foldband(h30, dev, DIMS30, max_step=STEPS, iters=3,
+                                    native_stats=stats)),
+        ("group-dot", "spmm_group_dot",
+         lambda: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=3, native_stats=stats,
+                                     kernel="group-dot")),
+    ]
+    launches, chain_ms = {}, {}
+    for path, kernel, run in paths:
+        reset_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        results = out[0]
+        got = [(r.step, r.nnz, int(r.max_value)) for r in results]
+        check(got == EXPECTED, f"{path} chain (step, nnz, max) {got} != {EXPECTED}")
+        p_final = unfold_band(*out[1:]) if path == "foldband" else out[1]
+        verify_final_values(p_final, final, sample_rows=128)
+        del out, p_final
+        torch.cuda.empty_cache()
+        check(counts[kernel] >= STEPS - 1,
+              f"{path} chain made {counts[kernel]} {kernel} launches")
+        launches[kernel] = counts[kernel]
+        chain_ms[kernel] = sum(r.seconds for r in results) * 1e3
+        print(f"[4] {path}: per-step (nnz, max) == oracle == published table; final "
+              f"values == oracle on 128 leading rows"
+              f"{' (un-permuted)' if path == 'foldband' else ''}; launches {counts}",
+              flush=True)
+        for r in results:
+            print(f"[4] {path} A^{r.step} step: {r.seconds * 1e3:.4f} ms  "
+                  f"({r.gb_per_s:.1f} GB/s of the byte model)", flush=True)
+        print(f"[4] {path} chain total A^2..A^{STEPS}: {chain_ms[kernel]:.4f} ms; "
+              f"A^{STEPS} nnz/s: {results[-1].nnz_per_s:.1f}", flush=True)
 
     # ---- phase 5: results
-    print(json.dumps({"kernels": [{
-        "name": "spmm_dense_acc",
-        "route": "cuda",
-        "source": "sparsetpu_torch/csrc/spmm_dense_acc.cu",
-        "replaces": "sparsetpu/kernels/spmm_pallas.py:109",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "timed_on": f"30^3 operand rows 0..{SLICE_ROWS} x P ({h30.n_rows}, {h30.n_cols})",
-        "full_step_ms": full_ms,
-        "chain_ms": total_ms,
-    }]}), flush=True)
+    meta = {
+        "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
+                           "sparsetpu/kernels/spmm_pallas.py:109"),
+        "spmm_band": ("sparsetpu_torch/csrc/spmm_band.cu",
+                      "sparsetpu/kernels/bandplanes.py:141"),
+        "spmm_group_dot": ("sparsetpu_torch/csrc/spmm_group_dot.cu",
+                           "sparsetpu/kernels/spmm_pallas.py:270"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        k_ms, p_ms, f_ms, where = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": k_ms, "plain_ms": p_ms, "timed_on": where,
+            "full_step_ms": f_ms, "chain_ms": chain_ms[name],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

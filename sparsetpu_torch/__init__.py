@@ -13,4 +13,7 @@ imported, and the shared C++ oracle is compiled from its source by path.
 
 Slice 1 covers the headline workload: the A^2..A^7 dense-accumulator chain on
 the thinned 30^3 Moore torus, run as ``python -m sparsetpu_torch.bench.chain``.
+Slice 2 adds the chain's fold-band form (``kernels.bandplanes``, ``--algo
+foldband``) and its group-dot form (``kernels.groupdot``, ``--kernel
+group-dot``).
 """

@@ -1,11 +1,13 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The tests feed the same state to ``sparsetpu`` and to the port and compare
-like with like; these two functions translate the JAX package's host forms
+like with like; these functions translate the JAX package's host forms
 into the port's, without importing jax.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -36,3 +38,12 @@ def dense_from_row_planes(planes, n_cols: int) -> np.ndarray:
     """JAX's (n, S, 128) row-plane P or C -> plain (n, n_cols)."""
     planes = np.asarray(planes)
     return planes.reshape(planes.shape[0], -1)[:, :n_cols]
+
+
+def band_from_jax_planes(planes, base_planes) -> Tuple[np.ndarray, np.ndarray]:
+    """JAX's band-compact (n, S, 128) planes with plane starts ``base`` ->
+    the port's band layout: the (n, S * 128) window of every row and its
+    absolute column start (base * 128, int32)."""
+    planes = np.asarray(planes)
+    base = np.asarray(base_planes, np.int64) * 128
+    return planes.reshape(planes.shape[0], -1), base.astype(np.int32)

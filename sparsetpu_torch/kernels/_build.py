@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels (``sparsetpu_torch/csrc``).
 
-On first use, nvcc compiles every source in ``csrc/`` for Hopper (sm_90a)
+On first use, nvcc compiles every ``*.cu`` in ``csrc/`` for Hopper (sm_90a),
+one nvcc process per source, all started together, and links the objects
 into one shared library with a plain C interface, loaded with ctypes; no
 PyTorch headers are involved, so a build takes seconds.  The library goes
 into the git-ignored ``sparsetpu_torch/_build/``, is rebuilt whenever a
-source is newer, and is written under a temporary name and renamed into
-place, so concurrent first uses never load a half-written file.  Nothing
-here runs at import time: the CPU tests import every module on hosts that
-have no nvcc.
+source or header (``*.cu``, ``*.cuh``) is newer, and is written under a
+temporary name and renamed into place, so concurrent first uses never load a
+half-written file.  Nothing here runs at import time: the CPU tests import
+every module on hosts that have no nvcc.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD_DIR, "libsparsetpu_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -43,29 +44,39 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if the library is missing or older than a source.
-    Returns nvcc's report (ptxas registers, spills) of this build, or "" if
-    the library was up to date.  Raises RuntimeError with nvcc's stderr on
-    failure."""
+    """Compile the kernels if the library is missing or older than a source
+    or header.  Returns nvcc's report (ptxas registers, spills) of this
+    build, or "" if the library was up to date.  Raises RuntimeError with
+    nvcc's stderr on failure."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    inputs = sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     if os.path.exists(LIB) and all(
-            os.path.getmtime(LIB) >= os.path.getmtime(s) for s in sources):
+            os.path.getmtime(LIB) >= os.path.getmtime(s) for s in inputs):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
-    os.close(fd)
+    tmp_dir = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc = _nvcc()
     try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True, text=True,
-        )
+        objs = [os.path.join(tmp_dir, os.path.basename(s) + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(sources, objs)]
+        report = []
+        for src, proc in zip(sources, procs):
+            out, err = proc.communicate()
+            report.append(out + err)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"(exit {proc.returncode}):\n{err}")
+        tmp_lib = os.path.join(tmp_dir, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n{res.stderr}")
-        os.replace(tmp, LIB)
+            raise RuntimeError(f"nvcc link failed (exit {res.returncode}):\n{res.stderr}")
+        os.replace(tmp_lib, LIB)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return res.stdout + res.stderr
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return "".join(report)
 
 
 def load() -> ctypes.CDLL:
@@ -75,12 +86,17 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         build()
         lib = ctypes.CDLL(LIB)
-        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.spmm_dense_acc_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
-        lib.spmm_dense_acc_f32.restype = ctypes.c_int
-        lib.spmm_dense_acc_max_cols.argtypes = []
-        lib.spmm_dense_acc_max_cols.restype = i64
-        lib.spmm_error_string.argtypes = [ctypes.c_int]
+        lib.spmm_band_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, vp]
+        lib.spmm_group_dot_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp]
+        for fn in (lib.spmm_dense_acc_f32, lib.spmm_band_f32, lib.spmm_group_dot_f32):
+            fn.restype = i32
+        for fn in (lib.spmm_dense_acc_max_cols, lib.spmm_band_max_cols,
+                   lib.spmm_group_dot_max_cols):
+            fn.argtypes = []
+            fn.restype = i64
+        lib.spmm_error_string.argtypes = [i32]
         lib.spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib

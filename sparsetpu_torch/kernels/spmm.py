@@ -92,10 +92,17 @@ def _check(op: SparseOperand, p: torch.Tensor, out: Optional[torch.Tensor]) -> N
                              f"got {t.dtype} on {t.device}")
     if op.row_ptr.numel() != op.n_rows + 1 or op.col_idx.numel() != op.vals.numel():
         raise ValueError("A's row_ptr, col_idx and vals disagree in size")
+    check_out(out, (op.n_rows, p.shape[1]), p)
+
+
+def check_out(out: Optional[torch.Tensor], shape, p: torch.Tensor) -> None:
+    """An ``out`` buffer (if given) must be a contiguous float32 ``shape``
+    tensor on P's device that does not share P's storage; raises
+    ValueError."""
     if out is None:
         return
-    if out.dtype != torch.float32 or tuple(out.shape) != (op.n_rows, p.shape[1]):
-        raise ValueError(f"out must be float32 {(op.n_rows, p.shape[1])}, "
+    if out.dtype != torch.float32 or tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out must be float32 {tuple(shape)}, "
                          f"got {out.dtype} {tuple(out.shape)}")
     if out.device != p.device or not out.is_contiguous():
         raise ValueError("out must be a contiguous tensor on P's device")

@@ -20,12 +20,14 @@ from sparsetpu import U64, SparseCSR
 from sparsetpu import native as jnative
 from sparsetpu.bench import chain as jchain
 from sparsetpu.graphs import generate as jgen
+from sparsetpu.kernels import bandplanes as jbp
 from sparsetpu.ops.hybrid import choose_strategy as jax_choose_strategy
 
 from sparsetpu_torch import native as tnative
 from sparsetpu_torch.bench import chain as tchain
 from sparsetpu_torch.csr import HostCSR
 from sparsetpu_torch.interop import csr_from_jax_host, dense_from_row_planes
+from sparsetpu_torch.kernels import bandplanes
 from sparsetpu_torch.ops.hybrid import choose_strategy
 
 
@@ -37,6 +39,15 @@ def torus4():
     stats, final = tchain.native_chain_stats_host(
         th.row_ptr, th.col_idx, th.vals, th.n_rows, 4)
     return jh, th, stats, final
+
+
+@pytest.fixture(scope="module")
+def pallas_final4(torus4):
+    """A^4 of the 4^3 torus through the JAX package's Pallas chain (interpret
+    mode), as a dense numpy array."""
+    jh = torus4[0]
+    planes = jchain.chain_final_pallas(jh.to_device(), max_step=4, rows_per_tile=8)
+    return dense_from_row_planes(jax.device_get(planes), jh.n)
 
 
 def test_port_torus_equals_jax_host_csr(torus4):
@@ -68,7 +79,7 @@ def test_oracle_spgemm_matches_jax_native():
     assert tnative.lib()._name.startswith(tnative.BUILD_DIR)
 
 
-def test_chain_cpu_matches_oracle_and_pallas(torus4):
+def test_chain_cpu_matches_oracle_and_pallas(torus4, pallas_final4):
     jh, th, stats, final = torus4
     results, p = tchain.run_chain_dense_acc(th, "cpu", max_step=4, iters=2,
                                             native_stats=stats, verbose=False)
@@ -78,11 +89,51 @@ def test_chain_cpu_matches_oracle_and_pallas(torus4):
     assert [r.flops for r in results] == [s[3] for s in stats]
     assert all(r.seconds > 0 for r in results)
     tchain.verify_final_values(p, final, sample_rows=64)
-    planes = jchain.chain_final_pallas(jh.to_device(), max_step=4, rows_per_tile=8)
-    want = dense_from_row_planes(jax.device_get(planes), jh.n)
-    np.testing.assert_array_equal(p.numpy(), want)
+    np.testing.assert_array_equal(p.numpy(), pallas_final4)
     csv = tchain.chain_csv(results)
     assert csv.count("\n") == 4  # header + A^2..A^4
+
+
+def _assert_chain_matches(results, p, stats, final, want):
+    assert [(r.step, r.nnz, r.max_value) for r in results] == \
+        [(s, nnz, float(mx)) for s, nnz, mx, _ in stats]
+    assert [r.flops for r in results] == [s[3] for s in stats]
+    tchain.verify_final_values(p, final, sample_rows=64)
+    np.testing.assert_array_equal(p.numpy(), want)
+
+
+def test_foldband_chain_cpu_matches_oracle_and_pallas(torus4, pallas_final4):
+    _, th, stats, final = torus4
+    results, p_band, base, perm = tchain.run_chain_foldband(
+        th, "cpu", (4, 4, 4), max_step=4, iters=2, native_stats=stats, verbose=False)
+    np.testing.assert_array_equal(perm, jbp.fold_perm((4, 4, 4)))
+    # the folded product, read in folded labels, is the folded A^4
+    np.testing.assert_array_equal(
+        bandplanes.band_to_dense(p_band, base, th.n_rows).numpy()[np.ix_(perm, perm)],
+        pallas_final4)
+    _assert_chain_matches(results, tchain.unfold_band(p_band, base, perm), stats, final,
+                          pallas_final4)
+
+
+def test_foldband_chain_on_a_narrow_band():
+    """64 x 4 x 4 torus folded: the windows stay narrower than the row."""
+    th = tchain.build_torus_host(dims=(64, 4, 4))
+    stats, final = tchain.native_chain_stats_host(th.row_ptr, th.col_idx, th.vals,
+                                                  th.n_rows, 3)
+    results, p_band, base, perm = tchain.run_chain_foldband(
+        th, "cpu", (64, 4, 4), max_step=3, iters=1, native_stats=stats, verbose=False)
+    assert p_band.shape[1] < th.n_rows
+    tchain.verify_final_values(tchain.unfold_band(p_band, base, perm), final)
+
+
+def test_group_dot_chain_cpu_matches_oracle_and_pallas(torus4, pallas_final4):
+    _, th, stats, final = torus4
+    results, p = tchain.run_chain_dense_acc(th, "cpu", max_step=4, iters=2,
+                                            native_stats=stats, verbose=False,
+                                            kernel="group-dot")
+    _assert_chain_matches(results, p, stats, final, pallas_final4)
+    with pytest.raises(ValueError, match="kernel"):
+        tchain.run_chain_dense_acc(th, "cpu", max_step=4, kernel="mxu")
 
 
 def test_chain_raises_on_oracle_disagreement(torus4):
@@ -133,6 +184,31 @@ def test_main_runs_on_cpu(tmp_path, capsys):
     assert csv.read_text().count("\n") == 4
 
 
+@pytest.mark.parametrize("switches,algo,kernel", [
+    (["--algo", "foldband"], "foldband", "band"),
+    (["--kernel", "group-dot"], "auto", "group-dot"),
+])
+def test_main_switches_run_on_cpu(capsys, switches, algo, kernel):
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", "4", "--iters", "1",
+                          *switches])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == record
+    assert record["verified"] and (record["algo"], record["kernel"]) == (algo, kernel)
+    assert record["metric"] == "spgemm_chain_A4_nnz_per_s" and record["value"] > 0
+    assert sum(line.startswith("A^") for line in out) == 3
+
+
+def test_main_default_keys_and_switch_conflict(capsys):
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", "3", "--iters", "1",
+                          "--no-verify"])
+    assert set(record) == {"metric", "value", "unit", "vs_baseline", "chain_ms", "device",
+                           "verified", "algo", "kernel"}
+    assert (record["algo"], record["kernel"], record["verified"]) == ("auto", "dense-acc", False)
+    with pytest.raises(SystemExit):
+        tchain.main(["--quick", "--device", "cpu", "--algo", "foldband",
+                     "--kernel", "group-dot"])
+
+
 def test_main_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -149,7 +225,9 @@ def test_main_refuses_unported_routes(monkeypatch):
 
 def test_port_never_imports_jax():
     code = ("import sys; import sparsetpu_torch, sparsetpu_torch.bench.chain, "
-            "sparsetpu_torch.kernels.spmm, sparsetpu_torch.interop; "
+            "sparsetpu_torch.kernels.spmm, sparsetpu_torch.kernels.bandplanes, "
+            "sparsetpu_torch.kernels.groupdot, sparsetpu_torch.kernels._build, "
+            "sparsetpu_torch.interop; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
