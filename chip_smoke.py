@@ -8,16 +8,23 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
 1. card identity (nvidia-smi name and power limit, torch's device name);
 2. build of the CUDA kernel library (one nvcc per source, in parallel) and
    the oracle, with nvcc's report;
-3. each kernel against its plain PyTorch version, for exact equality
-   (integer values below 2^24 carried in f32: every summation order is
-   exact, so the tolerance is 0), at small shapes and on a row slice of
-   the 30^3 operand, with kernel and plain times;
-4. the port's three chains at full scale, each with every kernel count set
-   to 0 just before it and read just after: the router's dense-acc chain,
-   the fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
-   torus; every step's (nnz, max) against the oracle and the published
-   table, the final values on 128 leading rows (un-permuted for fold-band),
-   and at least one launch per step of the path's kernel;
+3. each kernel against its plain PyTorch version, with kernel and plain
+   times: the three SpMM kernels for exact equality (integer values below
+   2^24 carried in f32: every summation order is exact, so the tolerance is
+   0), at small shapes and on a row slice of the 30^3 operand; the SDD
+   kernel at rtol 1e-5, atol 1e-4 (fp32 sums in another order than the
+   plain batched product's), at small shapes and on the full GPT-2 117M
+   pair list (config 1, T = 1,792 blocks);
+4. the port's paths at full scale, each with every kernel count set to 0
+   just before it and read just after: the router's dense-acc chain, the
+   fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
+   torus (every step's (nnz, max) against the oracle and the published
+   table, the final values on 128 leading rows, un-permuted for fold-band,
+   and at least one launch per step of the path's kernel); then the
+   attention-scores path at GPT-2 117M (config 1), one density at a time:
+   the dense baseline, ESC at densities 1e-3, 1e-2, 1e-1 and SDD at those
+   and 1.0, every product against the dense scores (rtol 1e-4, atol 1e-5)
+   and at least one SDD launch per density;
 5. a JSON line per kernel, the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -36,6 +43,8 @@ EXPECTED = [  # (step, nnz, max) of the 30^3 chain, exact on any device
 ]
 STEPS = 7
 SLICE_ROWS = 256
+SDD_RTOL, SDD_ATOL = 1e-5, 1e-4
+ATT_DENSITIES = (1e-3, 1e-2, 1e-1, 1.0)  # ESC runs at the first three (JAX's budget)
 DIMS30 = (30, 30, 30)
 
 
@@ -63,6 +72,17 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def compare_close(name, got, want, rtol, atol) -> float:
+    """Agreement of a kernel's result with its plain version's within
+    (rtol, atol); returns the max |error|."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(torch.allclose(got, want, rtol=rtol, atol=atol),
+          f"{name}: kernel != plain (max |err| {err}, rtol {rtol}, atol {atol})")
+    return err
+
+
 def compare(name, got, want) -> float:
     """Exact equality of a kernel's result with its plain version's; returns
     the max |error| (0.0)."""
@@ -78,20 +98,23 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
                          "smoke test needs a CUDA card")
     from sparsetpu_torch import native
+    from sparsetpu_torch.attention.scores import random_sparse_tensor
+    from sparsetpu_torch.bench import tipover
     from sparsetpu_torch.bench.chain import (
         build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
         run_chain_foldband, unfold_band, verify_final_values)
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
-    from sparsetpu_torch.kernels import _build, bandplanes, groupdot, spmm
+    from sparsetpu_torch.kernels import _build, bandplanes, blocksparse, groupdot, spmm
     from sparsetpu_torch.ops.hybrid import choose_strategy
 
-    # the plain group-dot version contracts with torch.bmm: exact only in full
-    # f32, so TF32 stays off (the default, stated here)
+    # the plain group-dot and SDD versions and the dense scores contract with
+    # torch.bmm/einsum: full f32 only, so TF32 stays off (the default, stated
+    # here; they raise otherwise)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     counters = {"spmm_dense_acc": spmm, "spmm_band": bandplanes,
-                "spmm_group_dot": groupdot}
+                "spmm_group_dot": groupdot, "sdd_block_scores": blocksparse}
 
     def reset_counts():
         for mod in counters.values():
@@ -244,6 +267,40 @@ def main() -> None:
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; full operand kernel "
               f"{f_ms:.4f} ms", flush=True)
 
+    # SDD block scores: small shapes (D of 8, 32, 64; a pair list with
+    # repeats; a single pair), then the full GPT-2 117M pair list
+    for d in (8, 32, 64):
+        q = torch.randn(384, d, generator=gen, device=dev)
+        k = torch.randn(512, d, generator=gen, device=dev)
+        for qi_l, ki_l in (([0, 1, 1, 2, 0, 1], [3, 0, 0, 1, 3, 2]), ([2], [1])):
+            qi = torch.tensor(qi_l, dtype=torch.int32, device=dev)
+            ki = torch.tensor(ki_l, dtype=torch.int32, device=dev)
+            err["sdd_block_scores"] = max(err["sdd_block_scores"], compare_close(
+                f"sdd_block_scores D={d} T={len(qi_l)}",
+                blocksparse.sdd_block_scores(q, k, qi, ki),
+                blocksparse.sdd_block_scores_reference(q, k, qi, ki), SDD_RTOL, SDD_ATOL))
+    print(f"[3] sdd_block_scores == plain (rtol {SDD_RTOL}, atol {SDD_ATOL}) at D = 8, 32, "
+          f"64, pairs with repeats and a single pair", flush=True)
+    shape1 = tipover.config_shape(tipover.GPT_CONFIGS[1])
+    qf, kf, qi, ki, _ = blocksparse.attention_block_operands(
+        random_sparse_tensor(shape1, 1.0, seed=0), random_sparse_tensor(shape1, 1.0, seed=1),
+        device=dev)
+    t_pairs = qi.numel()
+    check(t_pairs == 1792, f"config 1 pair list has {t_pairs} pairs, not 1,792")
+    err["sdd_block_scores"] = max(err["sdd_block_scores"], compare_close(
+        "sdd_block_scores config 1", blocksparse.sdd_block_scores(qf, kf, qi, ki),
+        blocksparse.sdd_block_scores_reference(qf, kf, qi, ki), SDD_RTOL, SDD_ATOL))
+    k_ms = time_ms(lambda: blocksparse.sdd_block_scores(qf, kf, qi, ki), 50)
+    p_ms = time_ms(lambda: blocksparse.sdd_block_scores_reference(qf, kf, qi, ki), 20)
+    gflop = t_pairs * 128 * 128 * qf.shape[1] * 2 / 1e9
+    timing["sdd_block_scores"] = (k_ms, p_ms, k_ms, f"GPT-2 117M (config 1) pair list, "
+                                  f"T={t_pairs}, D={qf.shape[1]}, density 1.0")
+    print(f"[3] sdd_block_scores on the config-1 pair list (T={t_pairs}, "
+          f"{gflop:.3f} GFLOP): kernel == plain (rtol {SDD_RTOL}, atol {SDD_ATOL}); kernel "
+          f"{k_ms:.4f} ms ({gflop / k_ms:.2f} TFLOP/s), plain {p_ms:.4f} ms", flush=True)
+    del qf, kf, qi, ki
+    torch.cuda.empty_cache()
+
     # ---- phase 4: the three chains at full scale
     t0 = time.perf_counter()
     stats, final = native_chain_stats_host(h30.row_ptr, h30.col_idx, h30.vals,
@@ -292,6 +349,30 @@ def main() -> None:
         print(f"[4] {path} chain total A^2..A^{STEPS}: {chain_ms[kernel]:.4f} ms; "
               f"A^{STEPS} nnz/s: {results[-1].nnz_per_s:.1f}", flush=True)
 
+    # the attention-scores path at GPT-2 117M, one density at a time
+    att_rows, sdd_launches = {}, 0
+    for density in ATT_DENSITIES:
+        reset_counts()
+        csv = tipover.sweep_config(tipover.GPT_CONFIGS[1], iters=3, densities=[density],
+                                   device=dev, verbose=False)
+        torch.cuda.synchronize()
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        lines = csv.strip().split("\n")
+        rows = {r.split(",")[0]: r.split(",") for r in lines[2:]}
+        check("sdd" in rows, f"no SDD row at density {density}")
+        check(("esc" in rows) == (density < 1.0),
+              f"ESC row {'missing' if density < 1.0 else 'present'} at density {density}")
+        check(counts["sdd_block_scores"] >= 1,
+              f"attention path at density {density} made no sdd_block_scores launch")
+        sdd_launches += counts["sdd_block_scores"]
+        att_rows[density] = (lines[0], rows)
+        esc = (f"ESC {rows['esc'][8]} us (nnz {rows['esc'][4]})" if "esc" in rows
+               else "ESC skipped (JAX's budget)")
+        print(f"[4] attention config 1, density {density}: {lines[0].split(' blas')[0]}; "
+              f"{esc}; SDD {rows['sdd'][8]} us (T={rows['sdd'][4]}); every product == dense "
+              f"scores (rtol 1e-4, atol 1e-5); launches {counts}", flush=True)
+    launches["sdd_block_scores"] = sdd_launches
+
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -300,16 +381,24 @@ def main() -> None:
                       "sparsetpu/kernels/bandplanes.py:141"),
         "spmm_group_dot": ("sparsetpu_torch/csrc/spmm_group_dot.cu",
                            "sparsetpu/kernels/spmm_pallas.py:270"),
+        "sdd_block_scores": ("sparsetpu_torch/csrc/sdd_block_scores.cu",
+                             "sparsetpu/kernels/blocksparse.py:100"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         k_ms, p_ms, f_ms, where = timing[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err[name],
             "ms": k_ms, "plain_ms": p_ms, "timed_on": where,
-            "full_step_ms": f_ms, "chain_ms": chain_ms[name],
-        })
+        }
+        if name in chain_ms:
+            entry.update(full_step_ms=f_ms, chain_ms=chain_ms[name])
+        kernels.append(entry)
+    print(json.dumps({"attention_config1_us": {
+        str(d): {"dense": float(ref.split("ref_time=")[1].split(" ")[0]),
+                 **{impl: float(r[8]) for impl, r in rows.items()}}
+        for d, (ref, rows) in att_rows.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

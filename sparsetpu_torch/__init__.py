@@ -15,5 +15,9 @@ Slice 1 covers the headline workload: the A^2..A^7 dense-accumulator chain on
 the thinned 30^3 Moore torus, run as ``python -m sparsetpu_torch.bench.chain``.
 Slice 2 adds the chain's fold-band form (``kernels.bandplanes``, ``--algo
 foldband``) and its group-dot form (``kernels.groupdot``, ``--kernel
-group-dot``).
+group-dot``).  Slice 3 adds the exact-semiring foundation (``semiring``, the
+device ``csr.SparseCSR``, ``ops.segments``, the ESC ``ops.spgemm``) and the
+attention-scores path on it: dense, element-sparse (ESC) and block-sparse
+(``kernels.blocksparse``, the SDD kernel) scores, swept by
+``python -m sparsetpu_torch.bench.tipover``.
 """

@@ -10,8 +10,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from .csr import HostCSR, SEMIRINGS
+from .csr import SEMIRINGS, HostCSR, SparseCSR
+from .kernels.blocksparse import BlockSparseMatrix
+from .semiring import by_name
 
 
 def csr_from_jax_host(row_ptr, col_idx, limbs, nnz: int, n_rows: int,
@@ -47,3 +50,23 @@ def band_from_jax_planes(planes, base_planes) -> Tuple[np.ndarray, np.ndarray]:
     planes = np.asarray(planes)
     base = np.asarray(base_planes, np.int64) * 128
     return planes.reshape(planes.shape[0], -1), base.astype(np.int32)
+
+
+def sparse_csr_from_jax(row_ptr, col_idx, limbs, nnz, n_rows: int, n_cols: int,
+                        sr_name: str, device="cpu") -> SparseCSR:
+    """The port's device ``SparseCSR`` from the numpy arrays of a JAX
+    ``SparseCSR``'s fields, keeping its capacity (padding included) and its
+    limbs: uint32 limbs widen to the port's int64, f32 stays f32."""
+    return SparseCSR.from_host_arrays(row_ptr, col_idx, limbs, nnz, int(n_rows),
+                                      int(n_cols), by_name(sr_name), device)
+
+
+def block_sparse_from_jax(blocks, block_rows, block_cols, shape, block_shape,
+                          device="cpu") -> BlockSparseMatrix:
+    """The port's ``BlockSparseMatrix`` from the arrays of a JAX one."""
+    return BlockSparseMatrix(
+        blocks=torch.tensor(np.asarray(blocks, np.float32), device=device),
+        block_rows=torch.tensor(np.asarray(block_rows, np.int32), device=device),
+        block_cols=torch.tensor(np.asarray(block_cols, np.int32), device=device),
+        shape=tuple(int(x) for x in shape),
+        block_shape=tuple(int(x) for x in block_shape))

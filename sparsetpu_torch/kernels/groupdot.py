@@ -30,7 +30,7 @@ import torch
 
 from ..csr import F32_EXACT_LIMIT, HostCSR
 from . import _build
-from .spmm import check_out
+from .spmm import check_out, tf32_enabled
 
 G = 32               # entries per group (JAX's G_MXU)
 ROWS_PER_TILE = 40   # R, as bench.py passes it at 30^3
@@ -97,18 +97,13 @@ def prepare_group_operand(a: HostCSR, device, rows_per_tile: int = ROWS_PER_TILE
         a.n_rows, a.n_cols, r, g)
 
 
-def _tf32_enabled() -> bool:
-    return (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest")
-
-
 def spmm_group_dot_reference(gop: GroupOperand, p: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch C = A x P: gather every group's G P rows and contract
     them with its (R, G) matrix in one batched product, then add the groups
     of each tile.  It materialises (n_groups, G, m) and (n_groups, R, m), so
     on the card it is for comparisons at small shapes.  A TF32 product would
     not be exact, so on CUDA it raises while TF32 is enabled."""
-    if p.device.type == "cuda" and _tf32_enabled():
+    if p.device.type == "cuda" and tf32_enabled():
         raise RuntimeError("TF32 is enabled for float32 products; the plain "
                            "group-dot version would not be exact")
     r, m_cols = gop.rows_per_tile, p.shape[1]

@@ -95,6 +95,12 @@ def _check(op: SparseOperand, p: torch.Tensor, out: Optional[torch.Tensor]) -> N
     check_out(out, (op.n_rows, p.shape[1]), p)
 
 
+def tf32_enabled() -> bool:
+    """True when float32 matrix products on CUDA may round through TF32."""
+    return (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest")
+
+
 def check_out(out: Optional[torch.Tensor], shape, p: torch.Tensor) -> None:
     """An ``out`` buffer (if given) must be a contiguous float32 ``shape``
     tensor on P's device that does not share P's storage; raises

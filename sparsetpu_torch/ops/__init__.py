@@ -1,1 +1,1 @@
-"""Host-side operations of the port (the router)."""
+"""Operations of the port: the chain router, sorted-segment primitives, ESC SpGEMM."""

@@ -1,0 +1,139 @@
+"""ESC SpGEMM and SpAdd on the exact semirings: the counterpart of the ESC
+part of ``sparsetpu/ops/spgemm.py``.
+
+C = A x B by expand-sort-compress, in plain PyTorch tensor ops:
+
+  1. *symbolic*: flops(A, B) = sum over the entries (i, k) of A of
+     row_nnz_B[k], the exact expansion size and a bound on nnz(C);
+  2. *expand*: every partial product (i, j, a_ik (x) b_kj) as flat streams of
+     a fixed ``expand_cap``;
+  3. *compress*: sort by (i, j) and merge duplicates with the semiring's add
+     (``SparseCSR.from_coo_device``).
+
+No step synchronises with the host, so a product on the GPU is one stream of
+launches.  An expansion larger than ``expand_cap`` poisons nnz to -1.
+``spgemm_auto`` and its routing constants (measured on the TPU) wait for the
+row-categorized route (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..csr import SparseCSR
+from . import segments
+from .segments import INT32_SENTINEL
+
+
+def _entry_counts(a: SparseCSR, b: SparseCSR):
+    """(valid slots of A, their clamped columns, the row_nnz of B at them)."""
+    valid = torch.arange(a.capacity, device=a.device) < a.nnz
+    cols = torch.clamp(a.col_idx.long(), 0, b.n_rows - 1)
+    counts = torch.where(valid, b.row_nnz().long()[cols], 0)
+    return valid, cols, counts
+
+
+def symbolic_flops(a: SparseCSR, b: SparseCSR) -> torch.Tensor:
+    """Number of partial products in A x B (an upper bound on nnz(C)), as an
+    int64 device scalar: exact at any count, so the JAX package's chunked
+    ``symbolic_flops_exact`` reduces to reading it."""
+    return _entry_counts(a, b)[2].sum()
+
+
+def symbolic_flops_exact(a: SparseCSR, b: SparseCSR) -> int:
+    """The flop count on the host (one synchronisation)."""
+    return int(symbolic_flops(a, b))
+
+
+def max_value(a: SparseCSR) -> int:
+    """Largest stored value on the host (one synchronisation); 0 for f32."""
+    if a.sr_name == "f32" or a.capacity == 0:
+        return 0
+    valid = torch.arange(a.capacity, device=a.device) < a.nnz
+    out = 0
+    for k, limb in enumerate(a.values):
+        out |= int(torch.where(valid, limb, 0).max()) << (32 * k)
+    return out
+
+
+def narrow_u64_ok(a: SparseCSR, b: SparseCSR) -> bool:
+    """True when every partial product of u64 operands provably fits 32 bits,
+    so the expansion may carry one limb (``expand_products(narrow=True)``)."""
+    if a.sr_name != "u64" or b.sr_name != "u64":
+        return False
+    ma, mb = max_value(a), max_value(b)
+    return ma < (1 << 32) and mb < (1 << 32) and ma * mb < (1 << 32)
+
+
+def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = False):
+    """The partial-product streams (i, j, v, valid, total) of A x B, each of
+    ``expand_cap`` slots; ``total`` is the true product count (a device
+    scalar; the slots past it are invalid, the products past the capacity
+    are lost).
+
+    Slot t belongs to entry e of A with cum[e-1] <= t < cum[e] (found by
+    ``segments.repeat_index``, no binary search) and reads entry
+    t + (row_ptr_B[col_e] - cum[e-1]) of B.  ``narrow`` (u64 only; the caller
+    has checked ``narrow_u64_ok``) carries the products in one limb."""
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"shapes {a.shape} x {b.shape} do not chain")
+    if expand_cap < 1:
+        raise ValueError(f"expand_cap must be >= 1, got {expand_cap}")
+    if narrow and a.sr_name != "u64":
+        raise ValueError(f"narrow expansion is for u64, not {a.sr_name}")
+    sr = a.sr
+    device = a.device
+    valid_a, a_cols, counts = _entry_counts(a, b)
+    cum = torch.cumsum(counts, dim=0)
+    first = cum - counts
+    total = cum[-1]
+    t = torch.arange(expand_cap, device=device)
+    # padded slots of A drop out; an entry with no products repeats the next
+    # entry's start and so covers no slot
+    starts = torch.where(valid_a, first, expand_cap)
+    src = segments.repeat_index(starts, torch.arange(a.capacity, device=device),
+                                expand_cap)
+    valid = t < total
+    src = torch.clamp(src, 0, a.capacity - 1)
+    shift = b.row_ptr.long()[a_cols] - first
+    b_pos = torch.clamp(t + shift[src], 0, b.capacity - 1)
+    i = torch.where(valid, a.row_of_slot()[src], a.n_rows)
+    j = torch.where(valid, b.col_idx[b_pos], INT32_SENTINEL)
+    if narrow:
+        v = (torch.where(valid, a.values[0][src] * b.values[0][b_pos], 0),)
+    else:
+        v = sr.mul(sr.gather(a.values, src), sr.gather(b.values, b_pos))
+        v = sr.where(valid, v, sr.zeros((expand_cap,), device=device))
+    return i, j, v, valid, total
+
+
+def spgemm(a: SparseCSR, b: SparseCSR, expand_cap: int,
+           out_cap: Optional[int] = None, narrow: bool = False) -> SparseCSR:
+    """C = A x B on the semiring.  ``expand_cap`` must be >= flops(A, B)
+    (:func:`symbolic_flops`), else nnz is poisoned to -1; ``out_cap``
+    defaults to ``expand_cap``.  ``narrow``: see :func:`expand_products`."""
+    out_cap = out_cap or expand_cap
+    i, j, v, valid, total = expand_products(a, b, expand_cap, narrow=narrow)
+    c = SparseCSR.from_coo_device(i, j, v, a.n_rows, b.n_cols, a.sr, out_cap,
+                                  valid=valid)
+    # an expansion past expand_cap lost products: poison, so check() raises
+    return dataclasses.replace(c, nnz=torch.where(total <= expand_cap, c.nnz, -1))
+
+
+def spadd(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None) -> SparseCSR:
+    """C = A (+) B elementwise with the semiring's (saturating) add."""
+    if a.shape != b.shape or a.sr_name != b.sr_name:
+        raise ValueError(f"spadd needs equal shapes and semirings, got "
+                         f"{a.shape} {a.sr_name} and {b.shape} {b.sr_name}")
+    out_cap = out_cap or (a.capacity + b.capacity)
+    device = a.device
+    valid = torch.cat([torch.arange(a.capacity, device=device) < a.nnz,
+                       torch.arange(b.capacity, device=device) < b.nnz])
+    rows = torch.cat([a.row_of_slot(), b.row_of_slot()])
+    cols = torch.cat([a.col_idx, b.col_idx])
+    vals = tuple(torch.cat([x, y]) for x, y in zip(a.values, b.values))
+    return SparseCSR.from_coo_device(rows, cols, vals, a.n_rows, a.n_cols, a.sr,
+                                     out_cap, valid=valid)

@@ -227,7 +227,10 @@ def test_port_never_imports_jax():
     code = ("import sys; import sparsetpu_torch, sparsetpu_torch.bench.chain, "
             "sparsetpu_torch.kernels.spmm, sparsetpu_torch.kernels.bandplanes, "
             "sparsetpu_torch.kernels.groupdot, sparsetpu_torch.kernels._build, "
-            "sparsetpu_torch.interop; "
+            "sparsetpu_torch.interop, sparsetpu_torch.semiring, sparsetpu_torch.csr, "
+            "sparsetpu_torch.ops.segments, sparsetpu_torch.ops.spgemm, "
+            "sparsetpu_torch.attention.scores, sparsetpu_torch.kernels.blocksparse, "
+            "sparsetpu_torch.bench.tipover; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
