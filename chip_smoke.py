@@ -14,7 +14,14 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    0), at small shapes and on a row slice of the 30^3 operand; the SDD
    kernel at rtol 1e-5, atol 1e-4 (fp32 sums in another order than the
    plain batched product's), at small shapes and on the full GPT-2 117M
-   pair list (config 1, T = 1,792 blocks);
+   pair list (config 1, T = 1,792 blocks); the sort-merge kernel for exact
+   equality (integer semirings, and f32 on integer values) at every row
+   length it takes, each semiring, with saturating, all-sentinel and
+   single-product rows, then on the real padded slab of the largest
+   kernel-covered category of the ER 27,000 x 32 product.  Beside each
+   kernel: its bound (the larger of its compulsory bytes at 3.35 TB/s and
+   its fp32 operations at 67 TFLOP/s, the H100 SXM data sheet) and, where
+   one PyTorch call computes the same function, that call's time;
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
@@ -24,7 +31,12 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    attention-scores path at GPT-2 117M (config 1), one density at a time:
    the dense baseline, ESC at densities 1e-3, 1e-2, 1e-1 and SDD at those
    and 1.0, every product against the dense scores (rtol 1e-4, atol 1e-5)
-   and at least one SDD launch per density;
+   and at least one SDD launch per density; then the general-SpGEMM sweep
+   (``spgemm_bench.run``, BASELINE configs 3-4) on ER {1,000, 3,375, 8,000,
+   27,000} x {2, 8, 32} and power-law 27,000 (m = 8), one graph at a time,
+   with esc, escb, rowcat and rowcat_pallas: every product equal to the
+   oracle's whole CSR (no DNF row), nnz(C) as the published sweep, and at
+   least one sort-merge launch per graph (only rowcat_pallas launches it);
 5. a JSON line per kernel, the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -46,6 +58,18 @@ SLICE_ROWS = 256
 SDD_RTOL, SDD_ATOL = 1e-5, 1e-4
 ATT_DENSITIES = (1e-3, 1e-2, 1e-1, 1.0)  # ESC runs at the first three (JAX's budget)
 DIMS30 = (30, 30, 30)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores, data sheet
+SPGEMM_ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas")
+# (case, n, edges per node) -> nnz(C) of the published sweep
+# (reports/spgemm_sweep_full.csv): BASELINE configs 3-4, the whole grid
+SPGEMM_CASES = {
+    ("er", 1000, 2): 3_919, ("er", 1000, 8): 61_273, ("er", 1000, 32): 628_978,
+    ("er", 3375, 2): 13_396, ("er", 3375, 8): 214_002, ("er", 3375, 32): 2_957_810,
+    ("er", 8000, 2): 31_799, ("er", 8000, 8): 510_081, ("er", 8000, 32): 7_658_185,
+    ("er", 27000, 2): 108_807, ("er", 27000, 8): 1_725_082, ("er", 27000, 32): 27_099_771,
+    ("powerlaw", 27000, 8): 17_238_434,
+}
 
 
 def check(cond, msg):
@@ -93,6 +117,44 @@ def compare(name, got, want) -> float:
     return err
 
 
+def compare_slabs(name, got, want) -> float:
+    """Exact equality of two (cols, limbs) slabs; returns the max |error|."""
+    return max(compare(f"{name} {part}", g, w)
+               for part, g, w in zip(("cols", "lo", "hi"), (got[0], *got[1]),
+                                     (want[0], *want[1])))
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes at the memory rate and the fp32 operations at
+    the CUDA cores' rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_flops, "operations") if t_flops > t_bytes else (t_bytes, "bytes")
+
+
+def csr_spmm_bytes(row_ptr, cols, n_rows: int, width_in: int, width_out: int,
+                   value_bytes: float) -> float:
+    """Compulsory bytes of C = A x P: A's arrays, each distinct P row that A
+    references (width_in f32) once, and C (width_out f32 a row) once."""
+    distinct = torch.unique(cols).numel()
+    return (row_ptr.numel() * 4 + value_bytes + cols.numel() * 4
+            + distinct * width_in * 4 + n_rows * width_out * 4)
+
+
+def sdd_library_mask(qi, ki, m: int, n: int):
+    """The (m, n) CSR of every element of the listed 128 x 128 blocks (zero
+    values): the sampling mask of torch.sparse.sampled_addmm."""
+    dev = qi.device
+    ar = torch.arange(128, device=dev)
+    rows = (qi.long()[:, None, None] * 128 + ar[None, :, None]).expand(-1, 128, 128)
+    cols = (ki.long()[:, None, None] * 128 + ar[None, None, :]).expand(-1, 128, 128)
+    key = torch.sort((rows * n + cols).reshape(-1)).values
+    crow = torch.searchsorted(key // n, torch.arange(m + 1, device=dev))
+    return torch.sparse_csr_tensor(crow, key % n, torch.zeros(key.numel(), device=dev),
+                                   size=(m, n))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -103,10 +165,14 @@ def main() -> None:
     from sparsetpu_torch.bench.chain import (
         build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
         run_chain_foldband, unfold_band, verify_final_values)
+    from sparsetpu_torch.bench import spgemm_bench
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
-    from sparsetpu_torch.kernels import _build, bandplanes, blocksparse, groupdot, spmm
+    from sparsetpu_torch.kernels import (_build, bandplanes, blocksparse, groupdot,
+                                         sortmerge, spmm)
+    from sparsetpu_torch.ops import rowcat
     from sparsetpu_torch.ops.hybrid import choose_strategy
+    from sparsetpu_torch.ops.segments import INT32_SENTINEL
 
     # the plain group-dot and SDD versions and the dense scores contract with
     # torch.bmm/einsum: full f32 only, so TF32 stays off (the default, stated
@@ -114,7 +180,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     counters = {"spmm_dense_acc": spmm, "spmm_band": bandplanes,
-                "spmm_group_dot": groupdot, "sdd_block_scores": blocksparse}
+                "spmm_group_dot": groupdot, "sdd_block_scores": blocksparse,
+                "sortmerge_rows": sortmerge}
 
     def reset_counts():
         for mod in counters.values():
@@ -131,7 +198,9 @@ def main() -> None:
     # ---- phase 2: build
     t0 = time.perf_counter()
     report = _build.build()
-    _build.load()
+    lib = _build.load()
+    check(lib.sortmerge_rows_max_l() == sortmerge.MAX_L,
+          f"the kernel's longest row {lib.sortmerge_rows_max_l()} != {sortmerge.MAX_L}")
     t_kernels = time.perf_counter() - t0
     t0 = time.perf_counter()
     native.lib()
@@ -210,12 +279,30 @@ def main() -> None:
     err["spmm_dense_acc"] = max(err["spmm_dense_acc"],
                                 compare("spmm_dense_acc 30^3 rows", full[:SLICE_ROWS], want),
                                 compare("spmm_dense_acc 30^3 slice", sliced, want))
-    timing["spmm_dense_acc"] = (
-        time_ms(lambda: spmm.spmm_dense_acc(op_slice, p, out=sliced), 50),
-        time_ms(lambda: spmm.spmm_dense_acc_reference(op_slice, p), 10),
-        time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 5),
-        f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30})")
-    del full, sliced, want
+    # the library yardstick: cuSPARSE SpMM through torch.sparse.mm on CSR
+    lib_slice = torch.sparse_csr_tensor(op_slice.row_ptr, op_slice.col_idx, op_slice.vals,
+                                        size=(SLICE_ROWS, n30))
+    lib_full = torch.sparse_csr_tensor(op.row_ptr, op.col_idx, op.vals, size=(n30, n30))
+
+    def spmm_bound(o, n_rows):
+        """C = A x P's bound: A's arrays, each distinct P row once, C once,
+        and one FMA per nonzero of A and column of P."""
+        return bound(csr_spmm_bytes(o.row_ptr, o.col_idx, n_rows, n30, n30,
+                                    o.vals.numel() * 4),
+                     2.0 * o.col_idx.numel() * n30)
+
+    # dense-acc and group-dot compute the same function: one bound for both
+    (b_ms, b_by), full_b_ms = spmm_bound(op_slice, SLICE_ROWS), spmm_bound(op, n30)[0]
+    timing["spmm_dense_acc"] = dict(
+        ms=time_ms(lambda: spmm.spmm_dense_acc(op_slice, p, out=sliced), 50),
+        plain_ms=time_ms(lambda: spmm.spmm_dense_acc_reference(op_slice, p), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 20),
+        full_step_ms=time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 5),
+        full_bound_ms=full_b_ms,
+        full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 5),
+        timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30})")
+    del full, sliced, want, lib_full
 
     # group-dot at R = 40, G = 32 on the same P
     slice_csr = HostCSR(h30.row_ptr[:SLICE_ROWS + 1],
@@ -229,13 +316,16 @@ def main() -> None:
     err["spmm_group_dot"] = max(err["spmm_group_dot"],
                                 compare("spmm_group_dot 30^3 rows", full[:SLICE_ROWS], want),
                                 compare("spmm_group_dot 30^3 slice", sliced, want))
-    timing["spmm_group_dot"] = (
-        time_ms(lambda: groupdot.spmm_group_dot(gop_slice, p, out=sliced), 20),
-        time_ms(lambda: groupdot.spmm_group_dot_reference(gop_slice, p), 5),
-        time_ms(lambda: groupdot.spmm_group_dot(gop, p, out=full), 3),
-        f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30}), R=40 G=32, "
-        f"{gop.n_groups} groups in the full operand")
-    del full, sliced, want, p, op, op_slice, gop, gop_slice
+    timing["spmm_group_dot"] = dict(
+        ms=time_ms(lambda: groupdot.spmm_group_dot(gop_slice, p, out=sliced), 20),
+        plain_ms=time_ms(lambda: groupdot.spmm_group_dot_reference(gop_slice, p), 5),
+        bound_ms=b_ms, bound_by=b_by,  # A's nonzeros, not the padded (R, G) blocks
+        library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 20),
+        full_step_ms=time_ms(lambda: groupdot.spmm_group_dot(gop, p, out=full), 3),
+        full_bound_ms=full_b_ms,
+        timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30}), R=40 G=32, "
+                 f"{gop.n_groups} groups in the full operand")
+    del full, sliced, want, p, op, op_slice, gop, gop_slice, lib_slice
 
     # band: the widest step of the 30^3 fold-band chain, A^6 -> A^7 layouts
     a_f, h_a = fold(h30, bandplanes.fold_perm(DIMS30))
@@ -254,18 +344,30 @@ def main() -> None:
     err["spmm_band"] = max(err["spmm_band"],
                            compare("spmm_band 30^3 rows", full[:SLICE_ROWS], want),
                            compare("spmm_band 30^3 slice", sliced, want))
-    timing["spmm_band"] = (
-        time_ms(lambda: bandplanes.spmm_band(bop_slice, p, out=sliced), 50),
-        time_ms(lambda: bandplanes.spmm_band_reference(bop_slice, p), 10),
-        time_ms(lambda: bandplanes.spmm_band(bop, p, out=full), 5),
-        f"folded 30^3 operand rows 0..{SLICE_ROWS}, A^6 -> A^7 layouts "
-        f"(w_in={w_in}, w_out={w_out}, h_a={h_a})")
+    def band_bytes(o):
+        """A's arrays and bases, each distinct source window once, C's windows."""
+        return csr_spmm_bytes(o.a.row_ptr, o.a.col_idx, o.a.n_rows, o.w_in, o.w_out,
+                              o.a.vals.numel() * 4 + (o.base_in.numel()
+                                                      + o.base_out.numel()) * 4)
+
+    b_ms, b_by = bound(band_bytes(bop_slice))
+    timing["spmm_band"] = dict(
+        ms=time_ms(lambda: bandplanes.spmm_band(bop_slice, p, out=sliced), 50),
+        plain_ms=time_ms(lambda: bandplanes.spmm_band_reference(bop_slice, p), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,  # no library call takes the band layout
+        full_step_ms=time_ms(lambda: bandplanes.spmm_band(bop, p, out=full), 5),
+        full_bound_ms=bound(band_bytes(bop))[0],
+        timed_on=f"folded 30^3 operand rows 0..{SLICE_ROWS}, A^6 -> A^7 layouts "
+                 f"(w_in={w_in}, w_out={w_out}, h_a={h_a})")
     del full, sliced, want, p, op, bop, bop_slice
     torch.cuda.empty_cache()
-    for name, (k_ms, p_ms, f_ms, where) in timing.items():
-        print(f"[3] {name} on {where}: kernel == plain (exact); {SLICE_ROWS}-row slice: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; full operand kernel "
-              f"{f_ms:.4f} ms", flush=True)
+    for name, t in timing.items():
+        lib_t = t.get("library_ms")
+        print(f"[3] {name} on {t['timed_on']}: kernel == plain (exact); {SLICE_ROWS}-row "
+              f"slice: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{'none' if lib_t is None else f'{lib_t:.4f} ms'}; full operand kernel "
+              f"{t['full_step_ms']:.4f} ms, bound {t['full_bound_ms']:.4f} ms", flush=True)
 
     # SDD block scores: small shapes (D of 8, 32, 64; a pair list with
     # repeats; a single pair), then the full GPT-2 117M pair list
@@ -292,13 +394,97 @@ def main() -> None:
         blocksparse.sdd_block_scores_reference(qf, kf, qi, ki), SDD_RTOL, SDD_ATOL))
     k_ms = time_ms(lambda: blocksparse.sdd_block_scores(qf, kf, qi, ki), 50)
     p_ms = time_ms(lambda: blocksparse.sdd_block_scores_reference(qf, kf, qi, ki), 20)
-    gflop = t_pairs * 128 * 128 * qf.shape[1] * 2 / 1e9
-    timing["sdd_block_scores"] = (k_ms, p_ms, k_ms, f"GPT-2 117M (config 1) pair list, "
-                                  f"T={t_pairs}, D={qf.shape[1]}, density 1.0")
+    d = qf.shape[1]
+    gflop = t_pairs * 128 * 128 * d * 2 / 1e9
+    sdd_bytes = ((torch.unique(qi).numel() + torch.unique(ki).numel()) * 128 * d * 4
+                 + t_pairs * 128 * 128 * 4 + 8 * t_pairs)
+    b_ms, b_by = bound(sdd_bytes, gflop * 1e9)
+    mask = sdd_library_mask(qi, ki, qf.shape[0], kf.shape[0])
+    kt = kf.t().contiguous()
+    timing["sdd_block_scores"] = dict(
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.sparse.sampled_addmm(mask, qf, kt, beta=0.0), 10),
+        timed_on=f"GPT-2 117M (config 1) pair list, T={t_pairs}, D={d}, density 1.0")
     print(f"[3] sdd_block_scores on the config-1 pair list (T={t_pairs}, "
           f"{gflop:.3f} GFLOP): kernel == plain (rtol {SDD_RTOL}, atol {SDD_ATOL}); kernel "
-          f"{k_ms:.4f} ms ({gflop / k_ms:.2f} TFLOP/s), plain {p_ms:.4f} ms", flush=True)
-    del qf, kf, qi, ki
+          f"{k_ms:.4f} ms ({gflop / k_ms:.2f} TFLOP/s), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), sampled_addmm "
+          f"{timing['sdd_block_scores']['library_ms']:.4f} ms", flush=True)
+    del qf, kf, qi, ki, mask, kt
+    torch.cuda.empty_cache()
+
+    # sort-merge: every row length the kernel takes, each semiring
+    def rand_slab(rows, L, sr_name):
+        cols = torch.randint(0, max(L // 3, 2), (rows, L), generator=gen, device=dev,
+                             dtype=torch.int32)
+        sent = torch.rand((rows, L), generator=gen, device=dev) < 0.3
+        cols[sent] = INT32_SENTINEL
+        if sr_name == "f32":  # integer values: every order of the sums is exact
+            return cols, (torch.randint(0, 50, (rows, L), generator=gen, device=dev,
+                                        dtype=torch.float32) * ~sent,)
+        return cols, tuple(torch.randint(0, 1 << 32, (rows, L), generator=gen, device=dev,
+                                         dtype=torch.int64) * ~sent
+                           for _ in range(2 if sr_name == "u64" else 1))
+
+    def sm_case(name, cols, limbs, sr_name):
+        err["sortmerge_rows"] = max(err["sortmerge_rows"], compare_slabs(
+            f"sortmerge_rows {name}", sortmerge.sortmerge_rows(cols, limbs, sr_name),
+            sortmerge.sortmerge_rows_reference(cols, limbs, sr_name)))
+
+    lengths = [1 << k for k in range(sortmerge.MAX_L.bit_length())]
+    for sr_name in ("u64", "u32", "f32"):
+        for L in lengths:
+            for rows in (1, 37):
+                sm_case(f"{sr_name} L={L} R={rows}", *rand_slab(rows, L, sr_name), sr_name)
+    for L in (128, sortmerge.MAX_L):
+        full_col = torch.full((4, L), 7, dtype=torch.int32, device=dev)
+        top = torch.full((4, L), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+        for sr_name, limbs in (("u64", (top, top)), ("u32", (top,))):
+            got = sortmerge.sortmerge_rows(full_col, limbs, sr_name)
+            check(bool((got[0][:, 0] == 7).all() and (got[1][0][:, 0] == 0xFFFFFFFF).all()),
+                  f"sortmerge_rows {sr_name} L={L}: duplicates did not saturate")
+            sm_case(f"{sr_name} L={L} saturation", full_col, limbs, sr_name)
+        sent = torch.full((4, L), INT32_SENTINEL, dtype=torch.int32, device=dev)
+        zero = torch.zeros((4, L), dtype=torch.int64, device=dev)
+        sm_case(f"L={L} all sentinels", sent, (zero, zero), "u64")
+        one = sent.clone()
+        one[torch.arange(4, device=dev), torch.tensor([0, 5, L // 2, L - 1], device=dev)] = 9
+        sm_case(f"L={L} one product a row", one, (zero + 3, zero), "u64")
+    print(f"[3] sortmerge_rows == plain (exact) at L = 1..{sortmerge.MAX_L}, u64/u32/f32, "
+          f"and saturating, all-sentinel and single-product rows", flush=True)
+
+    # ... and on the real slab of the largest kernel-covered category of the
+    # ER 27,000 x 32 product, built as numeric_cat builds it
+    (_, er_n, _, er_coo), = spgemm_bench.make_cases(sides=(27000,), e_per_n=(32,),
+                                                    power_law_sides=())
+    a_er = spgemm_bench.case_operand(er_coo, dev)
+    fr, _, perm, cats, _, cap_g, _ = rowcat.rowcat_config(a_er, a_er)
+    L, rp, nr, off = max((c for c in cats if sortmerge.available(c[0], 2)),
+                         key=lambda c: c[0])
+    shared = rowcat.shared_stream(a_er, a_er, cap_g)
+    slab = rowcat.expand_cat(a_er, a_er, rowcat.category_rows(perm, er_n, rp, nr, off), fr,
+                             L, shared)
+    err["sortmerge_rows"] = max(err["sortmerge_rows"], compare_slabs(
+        f"sortmerge_rows ER 27000x32 L={L} slab", sortmerge.sortmerge_rows(*slab, "u64"),
+        sortmerge.sortmerge_rows_reference(*slab, "u64")))
+    # read once, written once: the data (an int32 column and uint32 limbs a
+    # slot) sets the bound; the port's format carries each limb in an int64
+    slab_bytes = 2 * slab[0].numel() * (4 + 4 * len(slab[1]))
+    format_bytes = 2 * slab[0].numel() * (4 + 8 * len(slab[1]))
+    b_ms, b_by = bound(slab_bytes)
+    timing["sortmerge_rows"] = dict(
+        ms=time_ms(lambda: sortmerge.sortmerge_rows(*slab, "u64"), 10),
+        plain_ms=time_ms(lambda: sortmerge.sortmerge_rows_reference(*slab, "u64"), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,  # torch.sort alone does not merge
+        format_bound_ms=bound(format_bytes)[0],
+        timed_on=f"ER 27,000 x 32 category L={L}: ({rp}, {L}) u64 slab, {nr} real rows")
+    t = timing["sortmerge_rows"]
+    print(f"[3] sortmerge_rows on {t['timed_on']}: kernel == plain (exact); kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{slab_bytes / 1e9:.3f} GB of data; the int64-limb format's "
+          f"{format_bytes / 1e9:.3f} GB take {t['format_bound_ms']:.4f} ms), library none",
+          flush=True)
+    del a_er, fr, perm, shared, slab
     torch.cuda.empty_cache()
 
     # ---- phase 4: the three chains at full scale
@@ -373,6 +559,31 @@ def main() -> None:
               f"scores (rtol 1e-4, atol 1e-5); launches {counts}", flush=True)
     launches["sdd_block_scores"] = sdd_launches
 
+    # the general-SpGEMM sweep, one graph at a time
+    sweep, sm_launches = {}, 0
+    for (case, n, epn), nnz_c in SPGEMM_CASES.items():
+        reset_counts()
+        csv = spgemm_bench.run(
+            sides=(n,) if case == "er" else (), e_per_n=(epn,),
+            power_law_sides=(n,) if case == "powerlaw" else (),
+            algos=SPGEMM_ALGOS, device=dev)
+        torch.cuda.synchronize()
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        rows = [line.split(",") for line in csv.strip().split("\n")[1:]]
+        check([r[6] for r in rows] == list(SPGEMM_ALGOS) and
+              not any(r[7].startswith("DNF") for r in rows),
+              f"spgemm sweep {case} {n}x{epn}: rows {rows}")
+        check(int(rows[0][5]) == nnz_c,
+              f"spgemm sweep {case} {n}x{epn}: nnz(C) {rows[0][5]} != {nnz_c}")
+        check(counts["sortmerge_rows"] >= 1,
+              f"spgemm sweep {case} {n}x{epn} made no sortmerge_rows launch")
+        sm_launches += counts["sortmerge_rows"]
+        sweep[f"{case},{n},{epn}"] = {r[6]: float(r[7]) for r in rows}
+        print(f"[4] spgemm sweep {case} {n}x{epn}: flops {rows[0][4]}, nnz(C) "
+              f"{nnz_c} (published); every algorithm == oracle CSR; launches {counts}",
+              flush=True)
+    launches["sortmerge_rows"] = sm_launches
+
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -383,22 +594,23 @@ def main() -> None:
                            "sparsetpu/kernels/spmm_pallas.py:270"),
         "sdd_block_scores": ("sparsetpu_torch/csrc/sdd_block_scores.cu",
                              "sparsetpu/kernels/blocksparse.py:100"),
+        "sortmerge_rows": ("sparsetpu_torch/csrc/sortmerge_rows.cu",
+                           "sparsetpu/kernels/sortmerge.py:120"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        k_ms, p_ms, f_ms, where = timing[name]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err[name],
-            "ms": k_ms, "plain_ms": p_ms, "timed_on": where,
+            "launches": launches[name], "max_abs_err": err[name], **timing[name],
         }
         if name in chain_ms:
-            entry.update(full_step_ms=f_ms, chain_ms=chain_ms[name])
+            entry["chain_ms"] = chain_ms[name]
         kernels.append(entry)
     print(json.dumps({"attention_config1_us": {
         str(d): {"dense": float(ref.split("ref_time=")[1].split(" ")[0]),
                  **{impl: float(r[8]) for impl, r in rows.items()}}
         for d, (ref, rows) in att_rows.items()}}), flush=True)
+    print(json.dumps({"spgemm_sweep_s": sweep}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,7 @@ import torch
 from ..attention import scores
 from ..csr import SparseCSR
 from ..kernels import blocksparse
-from ..ops.spgemm import spgemm, symbolic_flops
+from ..ops.spgemm import pow2, spgemm, symbolic_flops
 
 # (batch_size, sequence_length, n_heads, embedding_dim), as in the JAX package
 GPT_CONFIGS: List[Tuple[int, int, int, int]] = [
@@ -70,10 +70,6 @@ def _csr_mem_bytes(c: SparseCSR) -> int:
     """The JAX package's memory model of a CSR: row_ptr, and 4 bytes of
     column and of each limb per entry."""
     return 4 * (c.n_rows + 1) + int(c.nnz) * 4 * (1 + len(c.values))
-
-
-def _pow2(x: int) -> int:
-    return 1 << (max(int(x), 1) - 1).bit_length()
 
 
 def time_call(fn: Callable[[], object], iters: int, device: torch.device) -> float:
@@ -171,7 +167,7 @@ def sweep_config(cfg, iters: int = 2, n_density_steps: int = 17,
             torch.from_numpy(q).to(device), torch.from_numpy(k).to(device)).cpu().numpy()
 
         flops = int(symbolic_flops(q_csr, kt_csr))
-        cap = _pow2(flops)
+        cap = pow2(flops)
         if flops > max_flops or cap > ESC_CAP_LIMIT:
             if verbose:
                 print(f"# density {density:.4f}: esc skipped (flops {flops} > budget)",

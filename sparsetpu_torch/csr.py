@@ -200,6 +200,22 @@ class SparseCSR:
             n_rows=n_rows, n_cols=n_cols, sr_name=sr.name)
 
     @staticmethod
+    def identity(n: int, capacity: Optional[int] = None, sr: Semiring = U64,
+                 device="cpu") -> "SparseCSR":
+        """The n x n identity (the semiring's one on the diagonal)."""
+        cap = capacity or n
+        if cap < n:
+            raise ValueError(f"capacity {cap} < n {n}")
+        idx = torch.arange(n, device=device)
+        out = SparseCSR.empty(n, n, cap, sr, device)
+        out.col_idx[:n] = idx.int()
+        for limb, one in zip(out.values, sr.ones((n,), device=device)):
+            limb[:n] = one
+        return dataclasses.replace(
+            out, row_ptr=torch.arange(n + 1, dtype=torch.int32, device=device),
+            nnz=torch.tensor(n, dtype=torch.int64, device=device))
+
+    @staticmethod
     def from_coo_device(rows: torch.Tensor, cols: torch.Tensor, values: Value,
                         n_rows: int, n_cols: int, sr: Semiring, capacity: int,
                         valid: Optional[torch.Tensor] = None) -> "SparseCSR":

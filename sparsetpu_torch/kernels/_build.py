@@ -91,11 +91,13 @@ def load() -> ctypes.CDLL:
         lib.spmm_band_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, vp]
         lib.spmm_group_dot_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp]
         lib.sdd_block_scores_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, vp]
+        lib.sortmerge_rows.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, vp]
         for fn in (lib.spmm_dense_acc_f32, lib.spmm_band_f32, lib.spmm_group_dot_f32,
-                   lib.sdd_block_scores_f32):
+                   lib.sdd_block_scores_f32, lib.sortmerge_rows):
             fn.restype = i32
         for fn in (lib.spmm_dense_acc_max_cols, lib.spmm_band_max_cols,
-                   lib.spmm_group_dot_max_cols, lib.sdd_block_scores_max_pairs):
+                   lib.spmm_group_dot_max_cols, lib.sdd_block_scores_max_pairs,
+                   lib.sortmerge_rows_max_l):
             fn.argtypes = []
             fn.restype = i64
         lib.spmm_error_string.argtypes = [i32]

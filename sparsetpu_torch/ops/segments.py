@@ -19,7 +19,7 @@ Differences from the JAX package, and why:
   whose CUDA kernel took 15 ms for 2^23 elements on an H100; a running
   maximum of segment starts becomes a cumulative sum of increments
   (``repeat_index``) or a gather through the head positions
-  (``_segment_start``).
+  (``segment_start``).
 - The JAX package sums integer limbs in 16-bit planes of uint32, which is
   exact only while a segment holds fewer than 2^16 - 1 nonzero entries; past
   that it poisons the count to -1.  The port sums whole 32-bit limbs in
@@ -80,42 +80,50 @@ def _recombine(sr: Semiring, sums: Sequence[torch.Tensor]) -> Value:
     return (torch.where(over, MASK32, lo_sum & MASK32), torch.where(over, MASK32, hi))
 
 
-def _segment_start(heads: torch.Tensor) -> torch.Tensor:
-    """Index of the head of the segment covering each slot (heads[0] True)."""
+def segment_start(heads: torch.Tensor) -> torch.Tensor:
+    """Index of the head of the segment covering each slot of a 1-D stream
+    (heads[0] True)."""
     n = heads.shape[0]
     head_pos = torch.nonzero_static(heads, size=n, fill_value=n)[:, 0]
     return head_pos[torch.cumsum(heads, dim=0) - 1]
 
 
-def segment_reduce_sorted(sr: Semiring, heads: torch.Tensor,
-                          values: Value) -> Tuple[Value, torch.Tensor]:
-    """Segmented inclusive running sums of a 1-D stream: position i holds the
-    sum of its segment up to i, so each segment's total sits at its last
-    element.  Returns ``(totals, exact_ok)``; ``exact_ok`` is always True
-    here (the JAX package's is False past its 16-bit plane bound).  The JAX
-    package's ``axis`` (2-D streams, used by its row-categorized SpGEMM)
-    waits for that route.
+def segment_reduce_sorted(sr: Semiring, heads: torch.Tensor, values: Value,
+                          axis: int = 0) -> Tuple[Value, torch.Tensor]:
+    """Segmented inclusive running sums: position i holds the sum of its
+    segment up to i, so each segment's total sits at its last element.
+    Returns ``(totals, exact_ok)``; ``exact_ok`` is always True here (the JAX
+    package's is False past its 16-bit plane bound).
 
-    ``heads[0]`` must be True (as ``segment_heads`` gives)."""
+    ``axis=0``: a 1-D stream, ``heads[0]`` True (as ``segment_heads`` gives).
+    ``axis=1``: independent rows of (R, L) streams (the row-categorized and
+    blocked SpGEMM's lane merge), ``heads[:, 0]`` True.  Since every row
+    starts a segment, the rows run as one flattened stream, and no segment
+    is longer than a row, which bounds the f32 scan's passes by log2(L)."""
+    if heads.dim() != axis + 1 or axis not in (0, 1):
+        raise ValueError(f"axis {axis} does not fit heads of shape {tuple(heads.shape)}")
+    shape = heads.shape
+    span = shape[-1]
+    heads = heads.reshape(-1)
+    values = tuple(v.reshape(-1) for v in values)
     ok = torch.ones((), dtype=torch.bool, device=heads.device)
-    start = _segment_start(heads)
+    start = segment_start(heads)
     if sr.name != "f32":
         sums = []
         for limb in values:
             c = torch.cumsum(limb, dim=0)
             sums.append(c - (c - limb)[start])
-        return _recombine(sr, sums), ok
+        return tuple(x.view(shape) for x in _recombine(sr, sums)), ok
     # float32: a segmented Hillis-Steele scan.  After the pass with shift s,
     # every slot holds the sum of up to 2s slots ending at it, never reaching
-    # back past its segment's head; ceil(log2(n)) passes.
+    # back past its segment's head; ceil(log2(span)) passes.
     v = values[0].clone()
-    n = v.shape[0]
-    dist = torch.arange(n, device=v.device) - start
+    dist = torch.arange(v.shape[0], device=v.device) - start
     s = 1
-    while s < n:
+    while s < span:
         v[s:] += torch.where(dist[s:] >= s, v[:-s], 0.0)
         s *= 2
-    return (v,), ok
+    return (v.view(shape),), ok
 
 
 def compact(keep: torch.Tensor, arrays: Sequence[torch.Tensor], fill_values,
@@ -192,7 +200,7 @@ def reduce_sorted_coo(sr: Semiring, keys: Sequence[torch.Tensor], values: Value,
     keep = tail & valid
     if drop_zeros:
         # a segment survives iff it holds a nonzero entry
-        start = _segment_start(heads)
+        start = segment_start(heads)
         keep = keep & ((cums[0] - (cums[0] - nonzero.long())[start]) > 0)
     outs, count = compact(keep, list(keys) + cums, list(key_fills) + [0] * len(cums),
                           out_size)

@@ -13,7 +13,8 @@ C = A x B by expand-sort-compress, in plain PyTorch tensor ops:
 No step synchronises with the host, so a product on the GPU is one stream of
 launches.  An expansion larger than ``expand_cap`` poisons nnz to -1.
 ``spgemm_auto`` and its routing constants (measured on the TPU) wait for the
-row-categorized route (ROADMAP.md).
+next slice, with the slab, column-chunk and dense-accumulator routes
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -28,7 +29,12 @@ from . import segments
 from .segments import INT32_SENTINEL
 
 
-def _entry_counts(a: SparseCSR, b: SparseCSR):
+def pow2(x: int) -> int:
+    """The least power of two >= x (1 for x <= 1): a static capacity."""
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def entry_counts(a: SparseCSR, b: SparseCSR):
     """(valid slots of A, their clamped columns, the row_nnz of B at them)."""
     valid = torch.arange(a.capacity, device=a.device) < a.nnz
     cols = torch.clamp(a.col_idx.long(), 0, b.n_rows - 1)
@@ -36,11 +42,35 @@ def _entry_counts(a: SparseCSR, b: SparseCSR):
     return valid, cols, counts
 
 
+def row_flops(a: SparseCSR, b: SparseCSR) -> torch.Tensor:
+    """fr[i] = the number of partial products row i of A x B expands to."""
+    _, _, counts = entry_counts(a, b)
+    cin0 = torch.cat([counts.new_zeros(1), torch.cumsum(counts, dim=0)])
+    row_ptr = a.row_ptr.long()
+    return cin0[row_ptr[1:]] - cin0[row_ptr[:-1]]
+
+
+def shared_stream(a: SparseCSR, b: SparseCSR, cap_g: int):
+    """The natural expansion stream of A x B that the row-categorized and
+    blocked SpGEMMs gather from: (cin0, src, shift, ok), where cin0 is the
+    exclusive running product count over A's entries, src maps each of the
+    ``cap_g`` stream slots to its entry of A, shift[e] moves a slot of entry
+    e to its entry of B, and ok is False when the products exceed ``cap_g``."""
+    valid_e, a_cols, counts = entry_counts(a, b)
+    cincl = torch.cumsum(counts, dim=0)
+    first = cincl - counts
+    cin0 = torch.cat([counts.new_zeros(1), cincl])
+    starts = torch.where(valid_e, first, cap_g)
+    src = segments.repeat_index(starts, torch.arange(a.capacity, device=a.device), cap_g)
+    shift = b.row_ptr.long()[a_cols] - first
+    return cin0, src, shift, cincl[-1] <= cap_g
+
+
 def symbolic_flops(a: SparseCSR, b: SparseCSR) -> torch.Tensor:
     """Number of partial products in A x B (an upper bound on nnz(C)), as an
     int64 device scalar: exact at any count, so the JAX package's chunked
     ``symbolic_flops_exact`` reduces to reading it."""
-    return _entry_counts(a, b)[2].sum()
+    return entry_counts(a, b)[2].sum()
 
 
 def symbolic_flops_exact(a: SparseCSR, b: SparseCSR) -> int:
@@ -68,7 +98,8 @@ def narrow_u64_ok(a: SparseCSR, b: SparseCSR) -> bool:
     return ma < (1 << 32) and mb < (1 << 32) and ma * mb < (1 << 32)
 
 
-def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = False):
+def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = False,
+                    row_mask: Optional[torch.Tensor] = None):
     """The partial-product streams (i, j, v, valid, total) of A x B, each of
     ``expand_cap`` slots; ``total`` is the true product count (a device
     scalar; the slots past it are invalid, the products past the capacity
@@ -77,7 +108,9 @@ def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = 
     Slot t belongs to entry e of A with cum[e-1] <= t < cum[e] (found by
     ``segments.repeat_index``, no binary search) and reads entry
     t + (row_ptr_B[col_e] - cum[e-1]) of B.  ``narrow`` (u64 only; the caller
-    has checked ``narrow_u64_ok``) carries the products in one limb."""
+    has checked ``narrow_u64_ok``) carries the products in one limb.
+    ``row_mask`` (bool[n_rows]) expands only the rows where it is True (the
+    row-categorized SpGEMM's overflow rows, ``ops/rowcat.py``)."""
     if a.n_cols != b.n_rows:
         raise ValueError(f"shapes {a.shape} x {b.shape} do not chain")
     if expand_cap < 1:
@@ -86,7 +119,10 @@ def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = 
         raise ValueError(f"narrow expansion is for u64, not {a.sr_name}")
     sr = a.sr
     device = a.device
-    valid_a, a_cols, counts = _entry_counts(a, b)
+    valid_a, a_cols, counts = entry_counts(a, b)
+    a_rows = a.row_of_slot()
+    if row_mask is not None:
+        counts = torch.where(torch.cat([row_mask, row_mask.new_zeros(1)])[a_rows], counts, 0)
     cum = torch.cumsum(counts, dim=0)
     first = cum - counts
     total = cum[-1]
@@ -100,7 +136,7 @@ def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = 
     src = torch.clamp(src, 0, a.capacity - 1)
     shift = b.row_ptr.long()[a_cols] - first
     b_pos = torch.clamp(t + shift[src], 0, b.capacity - 1)
-    i = torch.where(valid, a.row_of_slot()[src], a.n_rows)
+    i = torch.where(valid, a_rows[src], a.n_rows)
     j = torch.where(valid, b.col_idx[b_pos], INT32_SENTINEL)
     if narrow:
         v = (torch.where(valid, a.values[0][src] * b.values[0][b_pos], 0),)

@@ -230,7 +230,9 @@ def test_port_never_imports_jax():
             "sparsetpu_torch.interop, sparsetpu_torch.semiring, sparsetpu_torch.csr, "
             "sparsetpu_torch.ops.segments, sparsetpu_torch.ops.spgemm, "
             "sparsetpu_torch.attention.scores, sparsetpu_torch.kernels.blocksparse, "
-            "sparsetpu_torch.bench.tipover; "
+            "sparsetpu_torch.bench.tipover, sparsetpu_torch.bench.spgemm_bench, "
+            "sparsetpu_torch.kernels.sortmerge, sparsetpu_torch.ops.rowcat, "
+            "sparsetpu_torch.ops.escb, sparsetpu_torch.graphs.datasets; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
