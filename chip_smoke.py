@@ -18,10 +18,15 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    equality (integer semirings, and f32 on integer values) at every row
    length it takes, each semiring, with saturating, all-sentinel and
    single-product rows, then on the real padded slab of the largest
-   kernel-covered category of the ER 27,000 x 32 product.  Beside each
-   kernel: its bound (the larger of its compulsory bytes at 3.35 TB/s and
-   its fp32 operations at 67 TFLOP/s, the H100 SXM data sheet) and, where
-   one PyTorch call computes the same function, that call's time;
+   kernel-covered category of the ER 27,000 x 32 product; the coalesce
+   kernel for exact equality (int32, int64 and f32 streams, K = 1..4, empty
+   and full blocks, one block, L = 1..2^20, out_cap above and below the
+   total), then on the real survivor streams of the mixed chain's A^4 slab
+   and of the ER 27,000 x 32 slab.  Beside each kernel: its bound (the
+   larger of its compulsory bytes at 3.35 TB/s and its fp32 operations at
+   67 TFLOP/s, the H100 SXM data sheet) and, where PyTorch computes the
+   same function, that call's time (for coalesce, one masked_select a
+   stream);
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
@@ -37,6 +42,13 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    with esc, escb, rowcat and rowcat_pallas: every product equal to the
    oracle's whole CSR (no DNF row), nnz(C) as the published sweep, and at
    least one sort-merge launch per graph (only rowcat_pallas launches it);
+   then the mixed chain on the 30^3 torus (slab ESC A^2..A^4, each equal to
+   the oracle's whole CSR, the densify, dense-acc A^5..A^7; the published
+   (nnz, max) table, the final values on 128 rows, at least one coalesce
+   launch per slab step and one dense-acc launch per late step); then
+   spgemm_slab on ER 27,000 x 32 and power-law 27,000 and spgemm_colchunk
+   (slot budget 2^24, K = 3 chunks) on ER 27,000 x 32, each equal to the
+   oracle's whole CSR, with at least one coalesce launch each;
 5. a JSON line per kernel, the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -85,9 +97,19 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean ms of fn() over reps launches, by CUDA events, after one warm-up."""
+    """Mean device ms of fn() over reps calls, by CUDA events, after one
+    warm-up.  The calls queue behind a device sleep that outlasts their
+    launches, so the host's launch time counts only where fn synchronises
+    (a call of ~0.1 ms is otherwise timed at the host's pace)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    launch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles a second at the H100's top clock; a slower clock sleeps longer
+    torch.cuda._sleep(int(2e9 * (2 * reps * launch_s + 1e-3)))
     start.record()
     for _ in range(reps):
         fn()
@@ -164,13 +186,14 @@ def main() -> None:
     from sparsetpu_torch.bench import tipover
     from sparsetpu_torch.bench.chain import (
         build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
-        run_chain_foldband, unfold_band, verify_final_values)
+        run_chain_foldband, run_chain_mixed, sparse_operand, unfold_band,
+        verify_final_values)
     from sparsetpu_torch.bench import spgemm_bench
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
-    from sparsetpu_torch.kernels import (_build, bandplanes, blocksparse, groupdot,
-                                         sortmerge, spmm)
-    from sparsetpu_torch.ops import rowcat
+    from sparsetpu_torch.kernels import (_build, bandplanes, blocksparse, coalesce,
+                                         groupdot, sortmerge, spmm)
+    from sparsetpu_torch.ops import colchunk, rowcat, slab as slab_ops
     from sparsetpu_torch.ops.hybrid import choose_strategy
     from sparsetpu_torch.ops.segments import INT32_SENTINEL
 
@@ -181,7 +204,7 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
     counters = {"spmm_dense_acc": spmm, "spmm_band": bandplanes,
                 "spmm_group_dot": groupdot, "sdd_block_scores": blocksparse,
-                "sortmerge_rows": sortmerge}
+                "sortmerge_rows": sortmerge, "coalesce_blocks": coalesce}
 
     def reset_counts():
         for mod in counters.values():
@@ -323,6 +346,8 @@ def main() -> None:
         library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 20),
         full_step_ms=time_ms(lambda: groupdot.spmm_group_dot(gop, p, out=full), 3),
         full_bound_ms=full_b_ms,
+        # C = A x P of the full operand: the library call timed beside dense-acc
+        full_library_ms=timing["spmm_dense_acc"]["full_library_ms"],
         timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30}), R=40 G=32, "
                  f"{gop.n_groups} groups in the full operand")
     del full, sliced, want, p, op, op_slice, gop, gop_slice, lib_slice
@@ -351,15 +376,27 @@ def main() -> None:
                                                       + o.base_out.numel()) * 4)
 
     b_ms, b_by = bound(band_bytes(bop_slice))
+    # the library yardstick computes the same C = A x P with P densified:
+    # torch.sparse.mm of the folded CSR (rows 0..SLICE_ROWS, and all of it)
+    p_dense = bandplanes.band_to_dense(p, b_in, n30).contiguous()
+    op_slice = spmm.row_slice(op, 0, SLICE_ROWS)
+    lib_slice = torch.sparse_csr_tensor(op_slice.row_ptr, op_slice.col_idx, op_slice.vals,
+                                        size=(SLICE_ROWS, n30))
+    lib_full = torch.sparse_csr_tensor(op.row_ptr, op.col_idx, op.vals, size=(n30, n30))
+    check(torch.equal(bandplanes.band_to_dense(sliced, b_out[:SLICE_ROWS], n30),
+                      torch.sparse.mm(lib_slice, p_dense)),
+          "spmm_band slice != torch.sparse.mm of the folded CSR and the dense P")
     timing["spmm_band"] = dict(
         ms=time_ms(lambda: bandplanes.spmm_band(bop_slice, p, out=sliced), 50),
         plain_ms=time_ms(lambda: bandplanes.spmm_band_reference(bop_slice, p), 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,  # no library call takes the band layout
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p_dense), 20),
         full_step_ms=time_ms(lambda: bandplanes.spmm_band(bop, p, out=full), 5),
         full_bound_ms=bound(band_bytes(bop))[0],
+        full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p_dense), 5),
         timed_on=f"folded 30^3 operand rows 0..{SLICE_ROWS}, A^6 -> A^7 layouts "
                  f"(w_in={w_in}, w_out={w_out}, h_a={h_a})")
-    del full, sliced, want, p, op, bop, bop_slice
+    del full, sliced, want, p, op, bop, bop_slice, p_dense, op_slice, lib_slice, lib_full
     torch.cuda.empty_cache()
     for name, t in timing.items():
         lib_t = t.get("library_ms")
@@ -367,7 +404,8 @@ def main() -> None:
               f"slice: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
               f"{'none' if lib_t is None else f'{lib_t:.4f} ms'}; full operand kernel "
-              f"{t['full_step_ms']:.4f} ms, bound {t['full_bound_ms']:.4f} ms", flush=True)
+              f"{t['full_step_ms']:.4f} ms, bound {t['full_bound_ms']:.4f} ms, library "
+              f"{t['full_library_ms']:.4f} ms", flush=True)
 
     # SDD block scores: small shapes (D of 8, 32, 64; a pair list with
     # repeats; a single pair), then the full GPT-2 117M pair list
@@ -484,7 +522,94 @@ def main() -> None:
           f"{slab_bytes / 1e9:.3f} GB of data; the int64-limb format's "
           f"{format_bytes / 1e9:.3f} GB take {t['format_bound_ms']:.4f} ms), library none",
           flush=True)
-    del a_er, fr, perm, shared, slab
+    del fr, perm, shared, slab
+    torch.cuda.empty_cache()
+
+    # coalesce: every stream type, K = 1..4, empty and full blocks, one
+    # block, L = 1..2^20, out_cap above and below the total
+    co_types = (torch.int32, torch.int64, torch.float32)
+
+    def rand_stream(nb, L, dtype):
+        if dtype == torch.float32:
+            return torch.randn((nb, L), generator=gen, device=dev)
+        top = 1 << 31 if dtype == torch.int32 else 1 << 32
+        return torch.randint(0, top, (nb, L), generator=gen, device=dev, dtype=dtype)
+
+    def co_case(name, offs, streams, out_cap, fills):
+        got = coalesce.coalesce_blocks(offs, streams, out_cap, fills)
+        want = coalesce.coalesce_blocks_reference(offs, streams, out_cap, fills)
+        err["coalesce_blocks"] = max(err["coalesce_blocks"], *(
+            compare(f"coalesce_blocks {name}, output {i}", g, w)
+            for i, (g, w) in enumerate(zip(got, want))))
+
+    n_co = 0
+    for L in (1, 2, 3, 37, 1024, 1025, 4096, slab_ops.MAX_L):
+        for nb in ((1, 3) if L == slab_ops.MAX_L else (1, 7)):
+            sb = torch.randint(0, L + 1, (nb,), generator=gen, device=dev)
+            sb[-1] = L  # a full block (the only one when nb = 1)
+            if nb > 1:
+                sb[0] = 0  # and an empty one
+            offs = torch.cat([sb.new_zeros(1), torch.cumsum(sb, dim=0)]).int()
+            total = int(offs[-1])
+            for k in range(1, coalesce.MAX_STREAMS + 1):
+                streams = [rand_stream(nb, L, co_types[(k + q) % 3]) for q in range(k)]
+                for out_cap in (total + 5, max(total - 3, 1)):
+                    co_case(f"L={L} nb={nb} K={k} out_cap={out_cap}", offs, streams, out_cap,
+                            [q - 1 for q in range(k)])
+                    n_co += 1
+    print(f"[3] coalesce_blocks == plain (exact) in {n_co} cases: L = 1..{slab_ops.MAX_L}, "
+          f"nb = 1, 3, 7, K = 1..{coalesce.MAX_STREAMS} of int32/int64/f32, empty and "
+          f"full blocks, out_cap above and below the total", flush=True)
+
+    # ... and on the real survivor streams of the mixed chain's A^4 slab
+    # (A^3 x A of the 30^3 torus) and of the ER 27,000 x 32 slab
+    a30 = sparse_operand(h30, dev)
+    a30_3 = slab_ops.spgemm_slab(slab_ops.spgemm_slab(a30, a30).check(), a30).check()
+    co_real = {}
+    for label, (x, y) in (("mixed chain A^4 slab (A^3 x A, 30^3)", (a30_3, a30)),
+                          ("ER 27,000 x 32 slab", (a_er, a_er))):
+        plan = slab_ops.slab_config(x, y)
+        offs, streams = slab_ops.survivor_streams(x, y, plan)
+        fills = [x.n_rows, INT32_SENTINEL] + [0] * (len(streams) - 2)
+        co_case(label, offs, streams, plan.out_cap, fills)
+        nb, L = streams[0].shape
+        total = int(offs[-1])
+        kept = min(total, plan.out_cap)
+        # each survivor read once and written once in every stream with its
+        # 4-byte block id, the rest of out_cap written once, offs read once;
+        # the data is 4 B a stream (int32 row and column, uint32 limbs), the
+        # port's format carries each limb in an int64
+        def co_bytes(es):
+            return kept * (2 * es + 4) + (plan.out_cap - kept) * (es + 4) + offs.numel() * 4
+
+        nbytes = co_bytes(4 * len(streams))
+        format_bytes = co_bytes(sum(st.element_size() for st in streams))
+        b_ms, b_by = bound(nbytes)
+        mask = torch.arange(L, device=dev)[None, :] < torch.diff(offs.long())[:, None]
+        bids = torch.arange(nb, dtype=torch.int32, device=dev)[:, None].expand(nb, L)
+        co_real[label] = dict(
+            ms=time_ms(lambda: coalesce.coalesce_blocks(offs, streams, plan.out_cap, fills),
+                       20),
+            plain_ms=time_ms(lambda: coalesce.coalesce_blocks_reference(
+                offs, streams, plan.out_cap, fills), 5),
+            bound_ms=b_ms, bound_by=b_by, format_bound_ms=bound(format_bytes)[0],
+            # one masked_select a stream, the block ids included
+            library_ms=time_ms(lambda: [torch.masked_select(st, mask)
+                                        for st in (*streams, bids)], 5),
+            timed_on=f"{label}: nb={nb} L={L}, K={len(streams)} streams "
+                     f"({', '.join(str(st.dtype)[6:] for st in streams)}), {total} survivors, "
+                     f"out_cap {plan.out_cap}")
+        t = co_real[label]
+        print(f"[3] coalesce_blocks on {t['timed_on']}: kernel == plain (exact); kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{nbytes / 1e9:.4f} GB of data; the int64-limb format's "
+              f"{format_bytes / 1e9:.4f} GB take {t['format_bound_ms']:.4f} ms), "
+              f"masked_select {t['library_ms']:.4f} ms", flush=True)
+        del offs, streams, mask, bids
+    er_t = co_real.pop("ER 27,000 x 32 slab")
+    (_, main_t), = co_real.items()
+    timing["coalesce_blocks"] = dict(main_t, **{f"er_{key}": v for key, v in er_t.items()})
+    del a30_3
     torch.cuda.empty_cache()
 
     # ---- phase 4: the three chains at full scale
@@ -584,6 +709,80 @@ def main() -> None:
               flush=True)
     launches["sortmerge_rows"] = sm_launches
 
+    # the mixed chain: slab ESC A^2..A^4, densify, dense-acc A^5..A^7
+    reset_counts()
+    results, p_final, t_dens = run_chain_mixed(h30, dev, max_step=STEPS, switch_step=5,
+                                               iters=3, native_stats=stats)
+    torch.cuda.synchronize()
+    counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+    got = [(r.step, r.nnz, int(r.max_value)) for r in results]
+    check(got == EXPECTED, f"mixed chain (step, nnz, max) {got} != {EXPECTED}")
+    verify_final_values(p_final, final, sample_rows=128)
+    del p_final
+    torch.cuda.empty_cache()
+    check(counts["coalesce_blocks"] >= 3, f"mixed chain made {counts['coalesce_blocks']} "
+          "coalesce_blocks launches over its 3 slab steps")
+    check(counts["spmm_dense_acc"] >= 3, f"mixed chain made {counts['spmm_dense_acc']} "
+          "spmm_dense_acc launches over its 3 late steps")
+    launches["coalesce_blocks"] = counts["coalesce_blocks"]
+    mixed_ms = sum(r.seconds for r in results) * 1e3 + t_dens * 1e3
+    print(f"[4] mixed: per-step (nnz, max) == oracle == published table; A^2..A^4 == the "
+          f"oracle's whole CSR; final values == oracle on 128 leading rows; launches {counts}",
+          flush=True)
+    for r in results:
+        print(f"[4] mixed A^{r.step} step [{'slab' if r.step < 5 else 'dense-acc'}]: "
+              f"{r.seconds * 1e3:.4f} ms", flush=True)
+    print(f"[4] mixed densify A^4: {t_dens * 1e3:.4f} ms; chain total A^2..A^{STEPS} incl. "
+          f"densify: {mixed_ms:.4f} ms [reference CSR-par total ~102 ms]", flush=True)
+
+    # slab ESC on ER 27,000 x 32 and power-law 27,000, colchunk on ER (K = 3)
+    (_, pl_n, _, pl_coo), = spgemm_bench.make_cases(sides=(), power_law_sides=(27000,))
+    slab_paths = {}
+    for label, coo, n_x in (("ER 27,000 x 32", er_coo, er_n),
+                            ("power-law 27,000", pl_coo, pl_n)):
+        a_x = spgemm_bench.case_operand(coo, dev)
+        host = native.as_host_csr(*a_x.to_numpy())
+        want = native.spgemm(host, host, n_x)
+        plan = slab_ops.slab_config(a_x, a_x)
+        reset_counts()
+        t0 = time.perf_counter()
+        c = slab_ops.spgemm_slab(a_x, a_x).check()
+        torch.cuda.synchronize()
+        t_call = (time.perf_counter() - t0) * 1e3
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        spgemm_bench.check_against_oracle(c, want, f"spgemm_slab {label}")
+        check(counts["coalesce_blocks"] >= 1, f"spgemm_slab {label} made no coalesce launch")
+        del c
+        numeric_ms = time_ms(lambda: slab_ops.slab_numeric(a_x, a_x, plan), 3)
+        wide = len(plan.packs) == 2
+        slab_paths[f"slab {label}"] = dict(call_ms=t_call, numeric_ms=numeric_ms,
+                                           wide_rows=wide)
+        print(f"[4] spgemm_slab {label}: nnz(C) {len(want[1])} == oracle's whole CSR; call "
+              f"(plan included) {t_call:.4f} ms, numeric {numeric_ms:.4f} ms; hub rows at a "
+              f"second lane width with merge_disjoint_rows: "
+              f"{'yes, L2 = ' + str(plan.packs[1][2]) if wide else 'no'}; launches {counts}",
+              flush=True)
+        if label.startswith("ER"):
+            bnd, _ = colchunk.plan_chunks(a_x, a_x, 1 << 24)
+            check(len(bnd) - 1 == 3, f"colchunk plan has {len(bnd) - 1} chunks, not 3")
+            reset_counts()
+            t0 = time.perf_counter()
+            c = colchunk.spgemm_colchunk(a_x, a_x, slot_budget=1 << 24).check()
+            torch.cuda.synchronize()
+            t_call = (time.perf_counter() - t0) * 1e3
+            counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+            spgemm_bench.check_against_oracle(c, want, f"spgemm_colchunk {label}")
+            check(counts["coalesce_blocks"] >= 3,
+                  f"spgemm_colchunk {label} made {counts['coalesce_blocks']} coalesce launches")
+            del c
+            slab_paths[f"colchunk {label}"] = dict(call_ms=t_call, chunks=3)
+            print(f"[4] spgemm_colchunk {label}, slot budget 2^24 (K = 3 chunks): == oracle's "
+                  f"whole CSR; call (plan included) {t_call:.4f} ms; launches {counts}",
+                  flush=True)
+        del a_x, host, want, plan
+        torch.cuda.empty_cache()
+    del a_er
+
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -596,6 +795,8 @@ def main() -> None:
                              "sparsetpu/kernels/blocksparse.py:100"),
         "sortmerge_rows": ("sparsetpu_torch/csrc/sortmerge_rows.cu",
                            "sparsetpu/kernels/sortmerge.py:120"),
+        "coalesce_blocks": ("sparsetpu_torch/csrc/coalesce_blocks.cu",
+                            "sparsetpu/kernels/coalesce.py:48"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -611,6 +812,9 @@ def main() -> None:
                  **{impl: float(r[8]) for impl, r in rows.items()}}
         for d, (ref, rows) in att_rows.items()}}), flush=True)
     print(json.dumps({"spgemm_sweep_s": sweep}), flush=True)
+    print(json.dumps({"mixed_chain_ms": mixed_ms, "mixed_steps_ms": {
+        str(r.step): r.seconds * 1e3 for r in results}, "mixed_densify_ms": t_dens * 1e3,
+        "slab_paths": slab_paths}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

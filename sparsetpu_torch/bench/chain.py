@@ -9,15 +9,19 @@ chain C_k = A x C_{k-1} for k = 2..7.  Three forms, as in ``bench.py``:
   (kernels/groupdot.py) with ``--kernel group-dot``;
 - ``--algo foldband``: the torus folded into a pure band and every step
   through the band SpMM (kernels/bandplanes.py), on windows of the band's
-  width only.
+  width only;
+- ``--algo mixed``: the sparse early steps through the slab ESC SpGEMM
+  (ops/slab.py, with the coalesce kernel), then A^(switch-1) densified and
+  the late steps through the dense-accumulator SpMM.
 
 Every step's nnz and max are checked against the C++ oracle, and the final
-product's values on its leading rows (for fold-band, after unfolding).
+product's values on its leading rows (for fold-band, after unfolding); the
+mixed chain's slab steps against the oracle's whole CSR.
 
 Run: ``python -m sparsetpu_torch.bench.chain [--quick] [--steps 7] [--iters 3]
-[--algo auto|foldband] [--kernel dense-acc|group-dot] [--csv PATH]
-[--no-verify] [--device cuda]``.  It prints one line per step and then one
-JSON line with the A^7 output rate, as ``bench.py`` does.
+[--algo auto|foldband|mixed] [--switch-step 5] [--kernel dense-acc|group-dot]
+[--csv PATH] [--no-verify] [--device cuda]``.  It prints one line per step
+and then one JSON line with the A^7 output rate, as ``bench.py`` does.
 """
 
 from __future__ import annotations
@@ -36,10 +40,14 @@ import numpy as np
 import torch
 
 from .. import native
-from ..csr import F32_EXACT_LIMIT, HostCSR
+from ..csr import F32_EXACT_LIMIT, HostCSR, SparseCSR
 from ..graphs import generate
 from ..kernels import bandplanes, groupdot, spmm
+from ..ops import slab
 from ..ops.hybrid import choose_strategy
+from ..ops.spgemm import max_value, symbolic_flops_exact
+from ..semiring import by_name
+from .spgemm_bench import check_against_oracle
 
 BASELINE_NNZ_PER_S = 289e6  # reference CPU CSR-par at A^7 (BASELINE.md)
 KERNELS = ("dense-acc", "group-dot")  # bench.py --pallas-kernel vpu, mxu
@@ -120,14 +128,15 @@ class _Step:
 
 
 def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
-                iters: int, native_stats: Optional[list],
-                verbose: bool) -> Tuple[List[ChainStep], torch.Tensor]:
+                iters: int, native_stats: Optional[list], verbose: bool,
+                first_step: int = 2) -> Tuple[List[ChainStep], torch.Tensor]:
     """Run ``steps`` from P0 ``iters`` times and keep each step's minimum
     time: CUDA events around the one launch on a GPU, ``time.perf_counter``
     on the CPU.  During the first repetition, outside the timed windows,
     every step's nnz and max are read back and checked against
-    ``native_stats`` when given; the first disagreement raises.  Returns the
-    per-step records and the final product (the last step's ``out``)."""
+    ``native_stats`` (the records of steps ``first_step``, ``first_step`` +
+    1, ...) when given; the first disagreement raises.  Returns the per-step
+    records and the final product (the last step's ``out``)."""
     device = p0.device
     on_gpu = device.type == "cuda"
     k = len(steps)
@@ -136,7 +145,7 @@ def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
     best = [math.inf] * k
     checked = []  # (nnz, max, flops) per step, from the first repetition
     events = []  # (step index, start, stop) CUDA events
-    row_nnz = torch.diff(a_op.row_ptr).long()  # row nnz of P0 = A
+    row_nnz = torch.count_nonzero(p0, dim=1)
     for it in range(iters):
         p = p0
         for idx, st in enumerate(steps):
@@ -156,7 +165,7 @@ def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
                 row_nnz = torch.count_nonzero(st.out, dim=1)
                 nnz = int(row_nnz.sum())
                 vmax = float(st.out.max())
-                step = idx + 2
+                step = idx + first_step
                 if vmax >= F32_EXACT_LIMIT - 8:
                     raise OverflowError(f"A^{step} reached the f32 exact range ({vmax})")
                 if native_stats is not None:
@@ -177,7 +186,7 @@ def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
 
     results = []
     for idx, ((nnz, vmax, flops), dt, st) in enumerate(zip(checked, best, steps)):
-        rec = ChainStep(step=idx + 2, nnz=nnz, flops=flops, seconds=dt,
+        rec = ChainStep(step=idx + first_step, nnz=nnz, flops=flops, seconds=dt,
                         nnz_per_s=nnz / dt, gflops=2.0 * flops / dt / 1e9,
                         max_value=vmax, gb_per_s=st.bytes / dt / 1e9)
         results.append(rec)
@@ -225,6 +234,139 @@ def run_chain_dense_acc(
     steps = [_Step(launch, bufs[idx % 2], step_bytes(entries, a.n_rows, a.n_cols),
                    f"{kernel} {device.type}") for idx in range(max_step - 1)]
     return _time_chain(steps, p0, op, iters, native_stats, verbose)
+
+
+def sparse_operand(a: HostCSR, device) -> SparseCSR:
+    """The host CSR as the device ``SparseCSR`` of the slab SpGEMM."""
+    sr = by_name(a.sr_name)
+    return SparseCSR.from_host_arrays(a.row_ptr.astype(np.int32), a.col_idx,
+                                      sr.to_host_limbs(a.vals), a.nnz, a.n_rows, a.n_cols,
+                                      sr, device)
+
+
+def tuple_to_f32_dense(c: SparseCSR) -> torch.Tensor:
+    """Dense (n_rows, n_cols) f32 of a CSR whose values are small integers,
+    scattered on its device (the caller guards values below 2^24)."""
+    size = c.n_rows * c.n_cols
+    slots = torch.arange(c.capacity, device=c.device)
+    flat = torch.where(slots < c.nnz, c.row_of_slot() * c.n_cols + c.col_idx.long(),
+                       size + slots)  # a dump slot of its own per padded slot
+    vals = c.values[0].float()
+    if len(c.values) > 1:
+        vals = vals + c.values[1].float() * float(1 << 32)
+    out = torch.zeros(size + c.capacity, dtype=torch.float32, device=c.device)
+    out[flat] = vals
+    return out[:size].view(c.n_rows, c.n_cols)
+
+
+def _timed_calls(fn: Callable[[], object], iters: int, device: torch.device):
+    """Call ``fn`` ``iters`` times; returns (its last result, the least
+    seconds of one call): CUDA events around each call on a GPU, with one
+    synchronise after all of them, ``time.perf_counter`` on the CPU."""
+    out, best, events = None, math.inf, []
+    for _ in range(iters):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            stop.record()
+            events.append((start, stop))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+    if events:
+        torch.cuda.synchronize(device)
+        best = min(start.elapsed_time(stop) for start, stop in events) / 1e3
+    return out, best
+
+
+def run_chain_mixed(
+    a: HostCSR,
+    device,
+    max_step: int = 7,
+    switch_step: int = 5,
+    iters: int = 3,
+    native_stats: Optional[list] = None,
+    verbose: bool = True,
+    keep: Optional[dict] = None,
+) -> Tuple[List[ChainStep], torch.Tensor, float]:
+    """The mixed chain (the counterpart of ``run_chain_mixed`` in the JAX
+    package): slab ESC for the sparse early steps, the dense-accumulator
+    SpMM for the dense late steps.
+
+    Steps 2..switch_step-1 run ``slab.slab_numeric`` on a plan fixed before
+    the timed calls (the whole ``spgemm_slab`` call, plan included, is timed
+    and printed too); A^(switch_step-1) is then densified into the (n, n)
+    f32 P (timed, guarded below 2^24), and steps switch_step..max_step run
+    ``spmm_dense_acc`` through ``_time_chain``.  Each step's time is its
+    least over ``iters`` calls.  With ``native_stats`` every step's nnz and
+    max are checked against the oracle, and each slab step's whole CSR
+    against the oracle's product, outside the timed windows.  With
+    switch_step = max_step + 1 there are no dense steps and the densify is
+    not timed.  ``keep`` (a dict), if given, receives each slab step's CSR
+    by step.  Returns (per-step records, final dense product, densify
+    seconds); the chain total, as the JAX package reports it, is the steps'
+    sum plus the densify."""
+    device = torch.device(device)
+    _check_chain_args(max_step, iters, native_stats)
+    if not 2 < switch_step <= max_step + 1:
+        raise ValueError(f"switch_step must lie in (2, {max_step + 1}], got {switch_step}")
+    n = a.n_rows
+    a_sp = sparse_operand(a, device)
+    base = native.as_host_csr(a.row_ptr, a.col_idx, a.vals)
+    prev = base
+    results: List[ChainStep] = []
+    cur = a_sp
+    for step in range(2, switch_step):
+        t0 = time.perf_counter()
+        slab.spgemm_slab(cur, a_sp).check()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_call = time.perf_counter() - t0
+        plan = slab.slab_config(cur, a_sp)
+        c, dt = _timed_calls(lambda: slab.slab_numeric(cur, a_sp, plan), iters, device)
+        nnz = int(c.check().nnz)
+        vmax = max_value(c)
+        flops = symbolic_flops_exact(cur, a_sp)
+        if native_stats is not None:
+            _, want_nnz, want_max, _ = native_stats[step - 2]
+            if (nnz, vmax) != (want_nnz, want_max):
+                raise RuntimeError(f"A^{step}: (nnz, max) = ({nnz}, {vmax}) but the oracle "
+                                   f"has ({want_nnz}, {want_max})")
+            prev = native.spgemm(prev, base, n)
+            check_against_oracle(c, prev, f"A^{step}")
+        rec = ChainStep(step=step, nnz=nnz, flops=flops, seconds=dt, nnz_per_s=nnz / dt,
+                        gflops=2.0 * flops / dt / 1e9, max_value=float(vmax))
+        results.append(rec)
+        if keep is not None:
+            keep[step] = c
+        if verbose:
+            print(f"A^{step} [slab call, plan included]: time={t_call * 1e3:.4f}ms",
+                  flush=True)
+            print(f"A^{step} [slab {device.type}]: nnz={nnz} flops={flops} "
+                  f"time={dt * 1e3:.4f}ms nnz/s={rec.nnz_per_s / 1e6:.1f}M "
+                  f"gflops={rec.gflops:.2f} max={vmax}", flush=True)
+        cur = c
+
+    if max_value(cur) >= F32_EXACT_LIMIT - 8:
+        raise OverflowError(f"A^{switch_step - 1} exceeds the f32 exact range")
+    if switch_step > max_step:
+        return results, tuple_to_f32_dense(cur), 0.0
+    p0, t_dens = _timed_calls(lambda: tuple_to_f32_dense(cur), iters, device)
+    if verbose:
+        print(f"densify A^{switch_step - 1} [transition]: time={t_dens * 1e3:.4f}ms",
+              flush=True)
+    op = spmm.prepare_sparse_operand(a, device)
+    bufs = (torch.empty_like(p0), torch.empty_like(p0))
+    steps = [_Step(functools.partial(spmm.spmm_dense_acc, op), bufs[idx % 2],
+                   step_bytes(a.nnz, n, a.n_cols), f"dense-acc {device.type}")
+             for idx in range(max_step - switch_step + 1)]
+    late, p = _time_chain(steps, p0, op, iters,
+                          None if native_stats is None else native_stats[switch_step - 2:],
+                          verbose, first_step=switch_step)
+    return results + late, p, t_dens
 
 
 def fold(a: HostCSR, perm: np.ndarray) -> Tuple[HostCSR, int]:
@@ -348,16 +490,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         help="skip the C++ oracle and its checks")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu, which runs the plain version")
-    parser.add_argument("--algo", choices=("auto", "foldband"), default="auto",
+    parser.add_argument("--algo", choices=("auto", "foldband", "mixed"), default="auto",
                         help="auto: the router's route (dense-acc); foldband: the "
-                             "fold-band chain, as bench.py --algo foldband")
+                             "fold-band chain, as bench.py --algo foldband; mixed: slab "
+                             "ESC, then dense-acc from --switch-step, as bench.py "
+                             "--algo mixed")
+    parser.add_argument("--switch-step", type=int, default=5,
+                        help="mixed chain: the first step on the dense-accumulator "
+                             "SpMM (earlier steps ride slab ESC)")
     parser.add_argument("--kernel", choices=KERNELS, default="dense-acc",
                         help="SpMM of the dense-acc route: dense-acc or group-dot, "
                              "which are bench.py --pallas-kernel vpu|mxu")
     args = parser.parse_args(argv)
-    if args.algo == "foldband" and args.kernel != "dense-acc":
-        parser.error("--kernel selects the dense-acc route's SpMM; --algo "
-                     "foldband runs the band SpMM")
+    if args.algo != "auto" and args.kernel != "dense-acc":
+        parser.error(f"--kernel selects the dense-acc route's SpMM; --algo {args.algo} "
+                     "runs its own")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -376,12 +523,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         _log(f"native oracle chain: A^{args.steps} nnz={native_stats[-1][1]} "
              f"max={native_stats[-1][2]} ({time.perf_counter() - t0:.1f}s)")
 
+    extra = {}
     if args.algo == "foldband":
         kernel = "band"
         results, p_band, base, perm = run_chain_foldband(
             h, device, dims, max_step=args.steps, iters=args.iters,
             native_stats=native_stats)
         p = unfold_band(p_band, base, perm) if native_final is not None else None
+    elif args.algo == "mixed":
+        kernel = "slab+dense-acc"
+        switch = min(args.switch_step, args.steps + 1)
+        results, p, t_dens = run_chain_mixed(h, device, max_step=args.steps,
+                                             switch_step=switch, iters=args.iters,
+                                             native_stats=native_stats)
+        extra = {"switch_step": switch, "densify_ms": t_dens * 1e3}
     else:
         strategy = choose_strategy(h, steps=args.steps - 1)
         _log(f"choose_strategy -> {strategy}")
@@ -391,9 +546,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         results, p = run_chain_dense_acc(h, device, max_step=args.steps,
                                          iters=args.iters, native_stats=native_stats,
                                          kernel=kernel)
-    total = sum(r.seconds for r in results)
-    print(f"chain total (A^2..A^{args.steps}): {total * 1e3:.4f}ms on "
-          f"{device_name(device)}  [reference CSR-par total ~102 ms]", flush=True)
+    total = sum(r.seconds for r in results) + extra.get("densify_ms", 0.0) / 1e3
+    print(f"chain total (A^2..A^{args.steps}{', incl. densify' if extra else ''}): "
+          f"{total * 1e3:.4f}ms on {device_name(device)}  [reference CSR-par total "
+          f"~102 ms]", flush=True)
     if native_final is not None:
         verify_final_values(p, native_final)
         _log("per-step (nnz, max) and final values agree with the native oracle")
@@ -409,6 +565,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "verified": native_final is not None,
         "algo": args.algo,
         "kernel": kernel,
+        **extra,
     }
     print(json.dumps(record), flush=True)
     if args.csv:

@@ -12,6 +12,7 @@ kernel is compared with it only where a card is present (marker ``cuda``).
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import jax
@@ -40,6 +41,13 @@ def _folded(dims, density, seed):
     perm = jbp.fold_perm(dims)
     rf, cf = perm[rows], perm[cols]
     return SparseCSR.from_coo_host(rf, cf, vals, n, sr=U64), jbp.band_halfwidth(rf, cf)
+
+
+def _scipy_csr(a: SparseCSR):
+    """A JAX SparseCSR as a float64 scipy CSR matrix."""
+    row_ptr, col_idx, vals = a.to_numpy()
+    return scipy.sparse.csr_matrix((vals.astype(np.float64), col_idx, row_ptr),
+                                   shape=(a.n_rows, a.n_cols))
 
 
 def _random_band(n, h, seed):
@@ -121,7 +129,8 @@ def test_band_step_matches_jax(name):
                       rows_per_tile=rpt, nbuf=4)
     want = np.asarray(jax.device_get(jbp.band_to_planes(c, jnp.asarray(b_out), n)))
     want = want.reshape(n, -1)[:, :n]
-    dense = a.to_dense_numpy().astype(np.float64) @ p_in.to_dense_numpy().astype(np.float64)
+    # the exact product, in float64 (integers far below 2^53)
+    dense = (_scipy_csr(a) @ _scipy_csr(p_in)).toarray()
     np.testing.assert_array_equal(want, dense.astype(np.float32))
 
     # the port in its GPU layout: 32-column quantum, no chaining slack

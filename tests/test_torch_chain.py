@@ -21,6 +21,7 @@ from sparsetpu import native as jnative
 from sparsetpu.bench import chain as jchain
 from sparsetpu.graphs import generate as jgen
 from sparsetpu.kernels import bandplanes as jbp
+from sparsetpu.ops import slab as jslab
 from sparsetpu.ops.hybrid import choose_strategy as jax_choose_strategy
 
 from sparsetpu_torch import native as tnative
@@ -136,6 +137,35 @@ def test_group_dot_chain_cpu_matches_oracle_and_pallas(torus4, pallas_final4):
         tchain.run_chain_dense_acc(th, "cpu", max_step=4, kernel="mxu")
 
 
+def test_mixed_chain_cpu_matches_oracle_and_jax_slab():
+    """8^3 thinned torus: A^2..A^4 by slab ESC (compared whole with JAX's
+    spgemm_slab products), then A^5..A^7 by dense-acc from the densified A^4."""
+    th = tchain.build_torus_host(dims=(8, 8, 8))
+    stats, final = tchain.native_chain_stats_host(th.row_ptr, th.col_idx, th.vals,
+                                                  th.n_rows, 7)
+    keep = {}
+    results, p, t_dens = tchain.run_chain_mixed(th, "cpu", max_step=7, switch_step=5,
+                                                iters=1, native_stats=stats,
+                                                verbose=False, keep=keep)
+    crp, cc, cv = final
+    want = np.zeros((th.n_rows, th.n_rows), np.float32)
+    want[np.repeat(np.arange(th.n_rows), np.diff(crp)), cc] = cv
+    _assert_chain_matches(results, p, stats, final, want)
+    assert t_dens > 0 and sorted(keep) == [2, 3, 4]
+    ja = jchain.build_torus_host(dims=(8, 8, 8)).to_device()
+    cur = ja
+    for step in (2, 3, 4):
+        cur = jslab.spgemm_slab(cur, ja)
+        got = keep[step]
+        assert int(got.nnz) == int(cur.nnz) and got.capacity == cur.capacity
+        np.testing.assert_array_equal(got.row_ptr.numpy(), np.asarray(cur.row_ptr))
+        np.testing.assert_array_equal(got.col_idx.numpy(), np.asarray(cur.col_idx))
+        for g, w in zip(got.values, cur.values):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+    with pytest.raises(ValueError, match="switch_step"):
+        tchain.run_chain_mixed(th, "cpu", max_step=4, switch_step=2)
+
+
 def test_chain_raises_on_oracle_disagreement(torus4):
     _, th, stats, final = torus4
     bad = [stats[0], (3, stats[1][1] + 1, *stats[1][2:]), stats[2]]
@@ -198,6 +228,22 @@ def test_main_switches_run_on_cpu(capsys, switches, algo, kernel):
     assert sum(line.startswith("A^") for line in out) == 3
 
 
+@pytest.mark.parametrize("steps,switch,dense_steps", [(6, 4, 3), (4, 5, 0)])
+def test_main_mixed_runs_on_cpu(capsys, steps, switch, dense_steps):
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", str(steps), "--iters", "1",
+                          "--algo", "mixed", "--switch-step", str(switch)])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == record
+    assert record["verified"] and (record["algo"], record["kernel"]) == ("mixed",
+                                                                         "slab+dense-acc")
+    assert record["switch_step"] == min(switch, steps + 1)
+    assert (record["densify_ms"] > 0) == (dense_steps > 0)
+    slab_steps = steps - 1 - dense_steps
+    assert sum(line.startswith("A^") and "[slab call" in line for line in out) == slab_steps
+    assert sum(line.startswith("A^") for line in out) == 2 * slab_steps + dense_steps
+    assert any(line.startswith("chain total") and "incl. densify" in line for line in out)
+
+
 def test_main_default_keys_and_switch_conflict(capsys):
     record = tchain.main(["--quick", "--device", "cpu", "--steps", "3", "--iters", "1",
                           "--no-verify"])
@@ -232,7 +278,9 @@ def test_port_never_imports_jax():
             "sparsetpu_torch.attention.scores, sparsetpu_torch.kernels.blocksparse, "
             "sparsetpu_torch.bench.tipover, sparsetpu_torch.bench.spgemm_bench, "
             "sparsetpu_torch.kernels.sortmerge, sparsetpu_torch.ops.rowcat, "
-            "sparsetpu_torch.ops.escb, sparsetpu_torch.graphs.datasets; "
+            "sparsetpu_torch.ops.escb, sparsetpu_torch.graphs.datasets, "
+            "sparsetpu_torch.kernels.coalesce, sparsetpu_torch.ops.slab, "
+            "sparsetpu_torch.ops.colchunk; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
