@@ -11,7 +11,11 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version, with kernel and plain
    times: the three SpMM kernels for exact equality (integer values below
    2^24 carried in f32: every summation order is exact, so the tolerance is
-   0), at small shapes and on a row slice of the 30^3 operand; the SDD
+   0), at small shapes and on a row slice of the 30^3 operand, group-dot
+   against both its plain versions (f32, and the u8 limbs of its own
+   arithmetic) on a P below 5 (one limb) and on a P that spans all three
+   limbs, and its P domain: a value of 2^24, -1, 0.5, NaN or inf turns its
+   warp's output tile into NaN and leaves the rest exact; the SDD
    kernel at rtol 1e-5, atol 1e-4 (fp32 sums in another order than the
    plain batched product's), at small shapes and on the full GPT-2 117M
    pair list (config 1, T = 1,792 blocks); the sort-merge kernel for exact
@@ -32,7 +36,10 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
    torus (every step's (nnz, max) against the oracle and the published
    table, the final values on 128 leading rows, un-permuted for fold-band,
-   and at least one launch per step of the path's kernel); then the
+   and at least one launch per step of the path's kernel); then the router's
+   "esc" route, the 30^3 torus at --steps 4, through the rowcat chain
+   (A^2..A^4 each equal to the oracle's whole CSR, at least one sort-merge
+   launch); then the
    attention-scores path at GPT-2 117M (config 1), one density at a time:
    the dense baseline, ESC at densities 1e-3, 1e-2, 1e-1 and SDD at those
    and 1.0, every product against the dense scores (rtol 1e-4, atol 1e-5)
@@ -49,8 +56,11 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    spgemm_slab on ER 27,000 x 32 and power-law 27,000 and spgemm_colchunk
    (slot budget 2^24, K = 3 chunks) on ER 27,000 x 32, each equal to the
    oracle's whole CSR, with at least one coalesce launch each;
-5. a JSON line per kernel, the card line, and the contract line
-   ``{"ok": true, "device": {...}}`` last.
+   Each path runs under torch.profiler, and every kernel's device time is
+   summed over it;
+5. JSON lines (the kernels line: each kernel's launches and device time
+   summed over its path, its times, bound and library call), the card line,
+   and the contract line ``{"ok": true, "device": {...}}`` last.
 """
 
 import json
@@ -164,6 +174,26 @@ def csr_spmm_bytes(row_ptr, cols, n_rows: int, width_in: int, width_out: int,
             + distinct * width_in * 4 + n_rows * width_out * 4)
 
 
+def profiled(fn, kernels):
+    """Run fn() under torch.profiler and return (its result, {kernel: device
+    ms}): each of ``kernels``' summed self device time, from
+    ``key_averages()`` (its CUDA function is ``<name>_kernel``).  CUDA
+    activity only: recording the host's ops too would slow the host-bound
+    paths (the slab steps, ESC, the small sweep rows) further."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    from sparsetpu_torch.bench.spgemm_profile import device_us
+
+    ms = dict.fromkeys(kernels, 0.0)
+    for e in prof.key_averages():
+        for name in kernels:
+            if f"{name}_kernel" in e.key:
+                ms[name] += device_us(e) / 1e3
+    return out, ms
+
+
 def sdd_library_mask(qi, ki, m: int, n: int):
     """The (m, n) CSR of every element of the listed 128 x 128 blocks (zero
     values): the sampling mask of torch.sparse.sampled_addmm."""
@@ -186,8 +216,8 @@ def main() -> None:
     from sparsetpu_torch.bench import tipover
     from sparsetpu_torch.bench.chain import (
         build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
-        run_chain_foldband, run_chain_mixed, sparse_operand, unfold_band,
-        verify_final_values)
+        run_chain_foldband, run_chain_mixed, run_chain_rowcat, sparse_operand,
+        unfold_band, verify_final_values)
     from sparsetpu_torch.bench import spgemm_bench
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
@@ -254,20 +284,62 @@ def main() -> None:
         ("random_graph(300, 900), non-symmetric",
          HostCSR.from_coo(rg_rows, rg_cols, rg_vals, rg_n), None),
     ]
+    def three_limb_p(h, n_cols):
+        """P spanning all three u8 limbs: values up to (2^24 - 1) / A's
+        largest row sum, so every C = A x P stays below 2^24."""
+        row_sum = np.bincount(h.rows(), weights=h.vals.astype(np.float64)).max()
+        top = (2**24 - 1) // int(row_sum)
+        p = torch.randint(0, top + 1, (h.n_cols, n_cols), generator=gen, device=dev,
+                          dtype=torch.float32)
+        check(float(p.max()) >= 2**16, "the three-limb P does not reach the top limb")
+        return p
+
+    def group_dot_case(label, gop, p):
+        """The kernel against both plain versions (f32 and u8 limbs): exact."""
+        got = groupdot.spmm_group_dot(gop, p)
+        return max(compare(f"spmm_group_dot {label}", got,
+                           groupdot.spmm_group_dot_reference(gop, p)),
+                   compare(f"spmm_group_dot {label} (limb plain version)", got,
+                           groupdot.spmm_group_dot_limbs_reference(gop, p)))
+
     err = {name: 0.0 for name in counters}
     for name, h, _ in small:
         op = spmm.prepare_sparse_operand(h, dev)
         p = rand_p(h.n_cols, h.n_cols)
+        p3 = three_limb_p(h, h.n_cols)
         err["spmm_dense_acc"] = max(err["spmm_dense_acc"], compare(
             f"spmm_dense_acc, {name}", spmm.spmm_dense_acc(op, p),
             spmm.spmm_dense_acc_reference(op, p)))
         for r, g in ((40, 32), (8, 4)):
             gop = groupdot.prepare_group_operand(h, dev, rows_per_tile=r, g=g)
-            err["spmm_group_dot"] = max(err["spmm_group_dot"], compare(
-                f"spmm_group_dot R={r} G={g}, {name}", groupdot.spmm_group_dot(gop, p),
-                groupdot.spmm_group_dot_reference(gop, p)))
-        print(f"[3] {name}: n={h.n_rows} nnz={h.nnz}: spmm_dense_acc and "
-              f"spmm_group_dot (R, G) = (40, 32), (8, 4) == plain (exact)", flush=True)
+            for label, pp in (("P < 5", p), ("three-limb P", p3)):
+                err["spmm_group_dot"] = max(err["spmm_group_dot"], group_dot_case(
+                    f"R={r} G={g} {label}, {name}", gop, pp))
+        print(f"[3] {name}: n={h.n_rows} nnz={h.nnz}: spmm_dense_acc == plain (exact); "
+              f"spmm_group_dot (R, G) = (40, 32), (8, 4) == both plain versions (f32, u8 "
+              f"limbs; exact) on P < 5 and on a three-limb P", flush=True)
+
+    # group-dot's P domain: a value outside [0, 2^24) or not an integer
+    # turns the output tile of the warp that staged it (R rows x 16
+    # columns) into NaN; every entry outside those columns is unchanged
+    h = small[0][1]
+    gop = groupdot.prepare_group_operand(h, dev, rows_per_tile=40, g=32)
+    w = groupdot.POISON_COLS
+    for bad in (2.0**24, -1.0, 0.5, float("nan"), float("inf")):
+        p = rand_p(h.n_cols, 300)
+        want = groupdot.spmm_group_dot_reference(gop, p)
+        p[int(h.col_idx[0]), 37] = bad  # a P row that row 0's first entry reads
+        got = groupdot.spmm_group_dot(gop, p)
+        torch.cuda.synchronize()
+        j0 = 37 // w * w
+        check(bool(got[:40, j0:j0 + w].isnan().all()),
+              f"spmm_group_dot: P value {bad} did not poison its tile")
+        outside = torch.ones(300, dtype=torch.bool, device=dev)
+        outside[j0:j0 + w] = False
+        compare(f"spmm_group_dot outside the tile poisoned by {bad}", got[:, outside],
+                want[:, outside])
+    print(f"[3] spmm_group_dot: a P value of 2^24, -1, 0.5, NaN or inf poisons its (40 x {w}) "
+          f"output tile with NaN; the rest == plain (exact)", flush=True)
 
     for name, h, dims in small[:2]:
         a_f, h_a = fold(h, bandplanes.fold_perm(dims))
@@ -325,7 +397,7 @@ def main() -> None:
         full_bound_ms=full_b_ms,
         full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 5),
         timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30})")
-    del full, sliced, want, lib_full
+    del full, sliced, want
 
     # group-dot at R = 40, G = 32 on the same P
     slice_csr = HostCSR(h30.row_ptr[:SLICE_ROWS + 1],
@@ -333,24 +405,32 @@ def main() -> None:
                         h30.vals[:h30.row_ptr[SLICE_ROWS]], SLICE_ROWS, n30, h30.sr_name)
     gop = groupdot.prepare_group_operand(h30, dev)
     gop_slice = groupdot.prepare_group_operand(slice_csr, dev)
-    full = groupdot.spmm_group_dot(gop, p)
-    sliced = groupdot.spmm_group_dot(gop_slice, p)
-    want = groupdot.spmm_group_dot_reference(gop_slice, p)
-    err["spmm_group_dot"] = max(err["spmm_group_dot"],
-                                compare("spmm_group_dot 30^3 rows", full[:SLICE_ROWS], want),
-                                compare("spmm_group_dot 30^3 slice", sliced, want))
+    p3 = three_limb_p(h30, n30)
+    for label, pp in (("P < 5", p), ("three-limb P", p3)):
+        full = groupdot.spmm_group_dot(gop, pp)
+        sliced = groupdot.spmm_group_dot(gop_slice, pp)
+        err["spmm_group_dot"] = max(
+            err["spmm_group_dot"], group_dot_case(f"30^3 slice, {label}", gop_slice, pp),
+            compare(f"spmm_group_dot 30^3 rows, {label}", full[:SLICE_ROWS], sliced),
+            compare(f"spmm_group_dot 30^3 full, {label} (against dense-acc)", full,
+                    spmm.spmm_dense_acc(op, pp)))
     timing["spmm_group_dot"] = dict(
-        ms=time_ms(lambda: groupdot.spmm_group_dot(gop_slice, p, out=sliced), 20),
+        ms=time_ms(lambda: groupdot.spmm_group_dot(gop_slice, p, out=sliced), 50),
         plain_ms=time_ms(lambda: groupdot.spmm_group_dot_reference(gop_slice, p), 5),
+        limbs_plain_ms=time_ms(lambda: groupdot.spmm_group_dot_limbs_reference(gop_slice, p),
+                               3),
         bound_ms=b_ms, bound_by=b_by,  # A's nonzeros, not the padded (R, G) blocks
         library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 20),
-        full_step_ms=time_ms(lambda: groupdot.spmm_group_dot(gop, p, out=full), 3),
+        full_step_ms=time_ms(lambda: groupdot.spmm_group_dot(gop, p, out=full), 5),
         full_bound_ms=full_b_ms,
-        # C = A x P of the full operand: the library call timed beside dense-acc
-        full_library_ms=timing["spmm_dense_acc"]["full_library_ms"],
-        timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30}), R=40 G=32, "
-                 f"{gop.n_groups} groups in the full operand")
-    del full, sliced, want, p, op, op_slice, gop, gop_slice, lib_slice
+        full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 5),
+        # P spanning all three limbs: every MMA of the step runs
+        three_limb_ms=time_ms(lambda: groupdot.spmm_group_dot(gop_slice, p3, out=sliced), 50),
+        three_limb_full_step_ms=time_ms(lambda: groupdot.spmm_group_dot(gop, p3, out=full), 5),
+        timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30}) < 5 (one u8 limb), "
+                 f"R=40 G=32, {gop.n_groups} groups in the full operand; three_limb_*: P "
+                 f"up to {int(p3.max())}")
+    del full, sliced, p, p3, op, op_slice, gop, gop_slice, lib_slice, lib_full
 
     # band: the widest step of the 30^3 fold-band chain, A^6 -> A^7 layouts
     a_f, h_a = fold(h30, bandplanes.fold_perm(DIMS30))
@@ -406,6 +486,10 @@ def main() -> None:
               f"{'none' if lib_t is None else f'{lib_t:.4f} ms'}; full operand kernel "
               f"{t['full_step_ms']:.4f} ms, bound {t['full_bound_ms']:.4f} ms, library "
               f"{t['full_library_ms']:.4f} ms", flush=True)
+        if "three_limb_ms" in t:
+            print(f"[3] {name} on a three-limb P: slice {t['three_limb_ms']:.4f} ms, full "
+                  f"{t['three_limb_full_step_ms']:.4f} ms; limb plain version "
+                  f"{t['limbs_plain_ms']:.4f} ms on the slice", flush=True)
 
     # SDD block scores: small shapes (D of 8, 32, 64; a pair list with
     # repeats; a single pair), then the full GPT-2 117M pair list
@@ -633,11 +717,12 @@ def main() -> None:
          lambda: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=3, native_stats=stats,
                                      kernel="group-dot")),
     ]
-    launches, chain_ms = {}, {}
+    # each path runs under torch.profiler: path_ms[path][kernel] is the
+    # kernel's device time summed over the path
+    launches, chain_ms, path_ms = {}, {}, {}
     for path, kernel, run in paths:
         reset_counts()
-        out = run()
-        torch.cuda.synchronize()
+        out, path_ms[path] = profiled(run, counters)
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
         results = out[0]
         got = [(r.step, r.nnz, int(r.max_value)) for r in results]
@@ -660,13 +745,34 @@ def main() -> None:
         print(f"[4] {path} chain total A^2..A^{STEPS}: {chain_ms[kernel]:.4f} ms; "
               f"A^{STEPS} nnz/s: {results[-1].nnz_per_s:.1f}", flush=True)
 
+    # the router's "esc" route: the 30^3 torus at --steps 4 rides the rowcat
+    # chain, as bench.py maps it; every step's whole CSR against the oracle
+    steps_esc = 4
+    strategy = choose_strategy(h30, steps=steps_esc - 1)
+    check(strategy == "esc", f"route at --steps {steps_esc} is {strategy!r}, not 'esc'")
+    reset_counts()
+    (rc_results, _), path_ms["rowcat"] = profiled(
+        lambda: run_chain_rowcat(h30, dev, max_step=steps_esc, iters=3,
+                                 native_stats=stats[:steps_esc - 1], verbose=False), counters)
+    counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+    got = [(r.step, r.nnz, int(r.max_value)) for r in rc_results]
+    check(got == EXPECTED[:steps_esc - 1], f"rowcat chain (step, nnz, max) {got}")
+    check(counts["sortmerge_rows"] >= 1, "the rowcat chain made no sortmerge_rows launch")
+    rowcat_ms = {str(r.step): r.seconds * 1e3 for r in rc_results}
+    print(f"[4] choose_strategy(--steps {steps_esc}) -> esc: the rowcat chain A^2..A^"
+          f"{steps_esc} == the oracle's whole CSR at every step; whole calls, host plan "
+          f"included: {', '.join(f'A^{k} {v:.4f} ms' for k, v in rowcat_ms.items())}; "
+          f"total {sum(rowcat_ms.values()):.4f} ms; launches {counts}", flush=True)
+
     # the attention-scores path at GPT-2 117M, one density at a time
     att_rows, sdd_launches = {}, 0
+    path_ms["attention"] = dict.fromkeys(counters, 0.0)
     for density in ATT_DENSITIES:
         reset_counts()
-        csv = tipover.sweep_config(tipover.GPT_CONFIGS[1], iters=3, densities=[density],
-                                   device=dev, verbose=False)
-        torch.cuda.synchronize()
+        csv, ms = profiled(lambda: tipover.sweep_config(
+            tipover.GPT_CONFIGS[1], iters=3, densities=[density], device=dev, verbose=False),
+            counters)
+        path_ms["attention"] = {k: v + ms[k] for k, v in path_ms["attention"].items()}
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
         lines = csv.strip().split("\n")
         rows = {r.split(",")[0]: r.split(",") for r in lines[2:]}
@@ -686,13 +792,14 @@ def main() -> None:
 
     # the general-SpGEMM sweep, one graph at a time
     sweep, sm_launches = {}, 0
+    path_ms["spgemm sweep"] = dict.fromkeys(counters, 0.0)
     for (case, n, epn), nnz_c in SPGEMM_CASES.items():
         reset_counts()
-        csv = spgemm_bench.run(
+        csv, ms = profiled(lambda: spgemm_bench.run(
             sides=(n,) if case == "er" else (), e_per_n=(epn,),
             power_law_sides=(n,) if case == "powerlaw" else (),
-            algos=SPGEMM_ALGOS, device=dev)
-        torch.cuda.synchronize()
+            algos=SPGEMM_ALGOS, device=dev), counters)
+        path_ms["spgemm sweep"] = {k: v + ms[k] for k, v in path_ms["spgemm sweep"].items()}
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
         rows = [line.split(",") for line in csv.strip().split("\n")[1:]]
         check([r[6] for r in rows] == list(SPGEMM_ALGOS) and
@@ -711,9 +818,9 @@ def main() -> None:
 
     # the mixed chain: slab ESC A^2..A^4, densify, dense-acc A^5..A^7
     reset_counts()
-    results, p_final, t_dens = run_chain_mixed(h30, dev, max_step=STEPS, switch_step=5,
-                                               iters=3, native_stats=stats)
-    torch.cuda.synchronize()
+    (results, p_final, t_dens), path_ms["mixed"] = profiled(
+        lambda: run_chain_mixed(h30, dev, max_step=STEPS, switch_step=5, iters=3,
+                                native_stats=stats), counters)
     counts = {name: mod.LAUNCHES for name, mod in counters.items()}
     got = [(r.step, r.nnz, int(r.max_value)) for r in results]
     check(got == EXPECTED, f"mixed chain (step, nnz, max) {got} != {EXPECTED}")
@@ -798,15 +905,27 @@ def main() -> None:
         "coalesce_blocks": ("sparsetpu_torch/csrc/coalesce_blocks.cu",
                             "sparsetpu/kernels/coalesce.py:48"),
     }
+    # the path whose run counts a kernel's launches, and sums its device time
+    kernel_path = {"spmm_dense_acc": "dense-acc", "spmm_band": "foldband",
+                   "spmm_group_dot": "group-dot", "sdd_block_scores": "attention",
+                   "sortmerge_rows": "spgemm sweep", "coalesce_blocks": "mixed"}
     kernels = []
     for name, (source, replaces) in meta.items():
+        path = kernel_path[name]
+        on_path = path_ms[path][name]
+        if on_path == 0.0:
+            print(f"[5] torch.profiler shows no device time for {name} on the {path} path",
+                  flush=True)
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err[name], **timing[name],
+            "path": path, "path_device_ms": on_path or None,
         }
         if name in chain_ms:
             entry["chain_ms"] = chain_ms[name]
         kernels.append(entry)
+    print(json.dumps({"path_device_ms": path_ms, "rowcat_chain_steps_ms": rowcat_ms}),
+          flush=True)
     print(json.dumps({"attention_config1_us": {
         str(d): {"dense": float(ref.split("ref_time=")[1].split(" ")[0]),
                  **{impl: float(r[8]) for impl, r in rows.items()}}

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..csr import SparseCSR
+from ..csr import DEFAULT_DEVICE, SparseCSR, resolve_device
 from ..kernels.spmm import tf32_enabled
 from ..ops.spgemm import spgemm
 from ..semiring import F32SR
@@ -49,11 +49,13 @@ def random_sparse_tensor(shape, density: float, seed: int, scale: float = 1.0) -
 
 
 def tensor_to_grouped_csr(x: np.ndarray, transpose_last: bool = False,
-                          capacity: Optional[int] = None, device="cpu") -> SparseCSR:
+                          capacity: Optional[int] = None,
+                          device=DEFAULT_DEVICE) -> SparseCSR:
     """(b, s, h, d) tensor -> block-diagonal f32 CSR over the groups g = b*s:
     rows (g, h) and columns (g, d) flattened, so groups never meet and one
     SpGEMM computes every Q[g] x K[g]^T.  ``transpose_last`` swaps (h, d) to
     build K^T.  The merge runs in numpy; one copy to ``device``."""
+    device = resolve_device(device)
     b, s, h, d = x.shape
     g = b * s
     xg = x.reshape(g, h, d)

@@ -12,15 +12,21 @@ chain C_k = A x C_{k-1} for k = 2..7.  Three forms, as in ``bench.py``:
   width only;
 - ``--algo mixed``: the sparse early steps through the slab ESC SpGEMM
   (ops/slab.py, with the coalesce kernel), then A^(switch-1) densified and
-  the late steps through the dense-accumulator SpMM.
+  the late steps through the dense-accumulator SpMM;
+- ``--algo rowcat``, and the router's "esc" route (a graph whose product
+  stays sparse, as the 30^3 torus at --steps 2..5): C_k = C_(k-1) x A in
+  CSR through the row-categorized SpGEMM (ops/rowcat.py, with the
+  sort-merge kernel), as ``bench.py`` maps "esc" to ``run_chain_rowcat``.
 
 Every step's nnz and max are checked against the C++ oracle, and the final
 product's values on its leading rows (for fold-band, after unfolding); the
-mixed chain's slab steps against the oracle's whole CSR.
+mixed chain's slab steps and every rowcat step against the oracle's whole
+CSR.  The router's "band" route needs the block-band product
+(``sparsetpu/kernels/bandmm.py``), which the port does not have: it raises.
 
 Run: ``python -m sparsetpu_torch.bench.chain [--quick] [--steps 7] [--iters 3]
-[--algo auto|foldband|mixed] [--switch-step 5] [--kernel dense-acc|group-dot]
-[--csv PATH] [--no-verify] [--device cuda]``.  It prints one line per step
+[--algo auto|foldband|mixed|rowcat] [--switch-step 5]
+[--kernel dense-acc|group-dot] [--csv PATH] [--no-verify] [--device cuda]``.  It prints one line per step
 and then one JSON line with the A^7 output rate, as ``bench.py`` does.
 """
 
@@ -43,7 +49,7 @@ from .. import native
 from ..csr import F32_EXACT_LIMIT, HostCSR, SparseCSR
 from ..graphs import generate
 from ..kernels import bandplanes, groupdot, spmm
-from ..ops import slab
+from ..ops import rowcat, slab
 from ..ops.hybrid import choose_strategy
 from ..ops.spgemm import max_value, symbolic_flops_exact
 from ..semiring import by_name
@@ -52,13 +58,10 @@ from .spgemm_bench import check_against_oracle
 BASELINE_NNZ_PER_S = 289e6  # reference CPU CSR-par at A^7 (BASELINE.md)
 KERNELS = ("dense-acc", "group-dot")  # bench.py --pallas-kernel vpu, mxu
 
-# routes of choose_strategy the port does not have yet, and where they stand
-NOT_PORTED = {
-    "band": "the 'band' route (block-band product, sparsetpu/kernels/bandmm.py) "
-            "is not ported yet: ROADMAP.md queue 1, item 13",
-    "esc": "the 'esc' route (general SpGEMM) is not ported yet: "
-           "ROADMAP.md queue 1, items 10-13",
-}
+# the route of choose_strategy the port does not have yet
+BAND_NOT_PORTED = ("the 'band' route needs the block-band product "
+                   "(sparsetpu/kernels/bandmm.py) and hybrid_matmul "
+                   "(sparsetpu/ops/hybrid.py), which the port does not have yet")
 
 
 @dataclass
@@ -75,8 +78,7 @@ class ChainStep:
 
 def step_bytes(a_nnz: int, n_rows: int, m: int) -> int:
     """Bytes a full-width step must move: one P row (m f32) read per entry of
-    A (per slot, padding included, for group-dot), and the (n_rows, m) f32 C
-    written once."""
+    A, and the (n_rows, m) f32 C written once."""
     return (a_nnz + n_rows) * m * 4
 
 
@@ -221,17 +223,15 @@ def run_chain_dense_acc(
     _check_chain_args(max_step, iters, native_stats)
     op = spmm.prepare_sparse_operand(a, device)
     if kernel == "dense-acc":
-        launch, entries = functools.partial(spmm.spmm_dense_acc, op), a.nnz
+        launch = functools.partial(spmm.spmm_dense_acc, op)
     elif kernel == "group-dot":
-        gop = groupdot.prepare_group_operand(a, device)
-        # padded slots read P rows too
-        launch = functools.partial(groupdot.spmm_group_dot, gop)
-        entries = gop.n_groups * gop.g
+        launch = functools.partial(groupdot.spmm_group_dot,
+                                   groupdot.prepare_group_operand(a, device))
     else:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     p0 = spmm.densify(op)
     bufs = (torch.empty_like(p0), torch.empty_like(p0))
-    steps = [_Step(launch, bufs[idx % 2], step_bytes(entries, a.n_rows, a.n_cols),
+    steps = [_Step(launch, bufs[idx % 2], step_bytes(a.nnz, a.n_rows, a.n_cols),
                    f"{kernel} {device.type}") for idx in range(max_step - 1)]
     return _time_chain(steps, p0, op, iters, native_stats, verbose)
 
@@ -369,6 +369,63 @@ def run_chain_mixed(
     return results + late, p, t_dens
 
 
+def run_chain_rowcat(
+    a: HostCSR,
+    device,
+    max_step: int = 7,
+    iters: int = 3,
+    native_stats: Optional[list] = None,
+    verbose: bool = True,
+) -> Tuple[List[ChainStep], SparseCSR]:
+    """The row-categorized chain (the counterpart of ``run_chain_rowcat`` in
+    the JAX package, the route ``bench.py`` takes for the router's "esc"):
+    C_k = C_(k-1) x A for k = 2..max_step through ``rowcat.spgemm_rowcat``,
+    the product staying a CSR; on CUDA its slab categories ride the
+    sort-merge kernel.
+
+    Each step's time is the least of ``iters`` whole calls, host plan
+    included, by the host clock around a call that ends in a synchronise,
+    as the JAX package times it.  With ``native_stats`` every step's nnz
+    and max are checked against the oracle's and its whole CSR against the
+    oracle's product, outside the timed calls; the first disagreement
+    raises.  Returns the per-step records and the final product A^max."""
+    device = torch.device(device)
+    _check_chain_args(max_step, iters, native_stats)
+    a_sp = sparse_operand(a, device)
+    base = native.as_host_csr(a.row_ptr, a.col_idx, a.vals)
+    prev = base
+    results: List[ChainStep] = []
+    cur = a_sp
+    for step in range(2, max_step + 1):
+        flops = symbolic_flops_exact(cur, a_sp)
+        c = rowcat.spgemm_rowcat(cur, a_sp).check()
+        best = math.inf
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            rowcat.spgemm_rowcat(cur, a_sp)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            best = min(best, time.perf_counter() - t0)
+        nnz = int(c.nnz)
+        vmax = max_value(c)
+        if native_stats is not None:
+            _, want_nnz, want_max, _ = native_stats[step - 2]
+            if (nnz, vmax) != (want_nnz, want_max):
+                raise RuntimeError(f"A^{step}: (nnz, max) = ({nnz}, {vmax}) but the oracle "
+                                   f"has ({want_nnz}, {want_max})")
+            prev = native.spgemm(prev, base, a.n_rows)
+            check_against_oracle(c, prev, f"A^{step}")
+        rec = ChainStep(step=step, nnz=nnz, flops=flops, seconds=best, nnz_per_s=nnz / best,
+                        gflops=2.0 * flops / best / 1e9, max_value=float(vmax))
+        results.append(rec)
+        if verbose:
+            print(f"A^{step} [rowcat {device.type}]: nnz={nnz} flops={flops} "
+                  f"time={best * 1e3:.4f}ms nnz/s={rec.nnz_per_s / 1e6:.1f}M "
+                  f"gflops={rec.gflops:.2f} max={vmax}", flush=True)
+        cur = c
+    return results, cur
+
+
 def fold(a: HostCSR, perm: np.ndarray) -> Tuple[HostCSR, int]:
     """A relabelled by ``perm`` (entry (i, j) moves to (perm[i], perm[j]))
     and its linear band half-width."""
@@ -490,11 +547,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         help="skip the C++ oracle and its checks")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu, which runs the plain version")
-    parser.add_argument("--algo", choices=("auto", "foldband", "mixed"), default="auto",
-                        help="auto: the router's route (dense-acc); foldband: the "
-                             "fold-band chain, as bench.py --algo foldband; mixed: slab "
-                             "ESC, then dense-acc from --switch-step, as bench.py "
-                             "--algo mixed")
+    parser.add_argument("--algo", choices=("auto", "foldband", "mixed", "rowcat"),
+                        default="auto",
+                        help="auto: the router's route (dense-acc, or the rowcat chain "
+                             "for its 'esc'); foldband: the fold-band chain, as bench.py "
+                             "--algo foldband; mixed: slab ESC, then dense-acc from "
+                             "--switch-step, as bench.py --algo mixed; rowcat: the "
+                             "row-categorized chain, as bench.py --algo rowcat")
     parser.add_argument("--switch-step", type=int, default=5,
                         help="mixed chain: the first step on the dense-accumulator "
                              "SpMM (earlier steps ride slab ESC)")
@@ -538,20 +597,34 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                              native_stats=native_stats)
         extra = {"switch_step": switch, "densify_ms": t_dens * 1e3}
     else:
-        strategy = choose_strategy(h, steps=args.steps - 1)
-        _log(f"choose_strategy -> {strategy}")
-        if strategy != "dense-acc":
-            raise NotImplementedError(NOT_PORTED[strategy])
-        kernel = args.kernel
-        results, p = run_chain_dense_acc(h, device, max_step=args.steps,
-                                         iters=args.iters, native_stats=native_stats,
-                                         kernel=kernel)
+        algo = args.algo
+        if algo == "auto":
+            strategy = choose_strategy(h, steps=args.steps - 1)
+            _log(f"choose_strategy -> {strategy}")
+            if strategy == "band":
+                raise NotImplementedError(BAND_NOT_PORTED)
+            if strategy == "esc":
+                if args.kernel != "dense-acc":
+                    raise ValueError(f"--kernel {args.kernel} selects the dense-acc route's "
+                                     "SpMM; the router chose 'esc', the rowcat chain")
+                algo = "rowcat"
+        if algo == "rowcat":
+            kernel = "rowcat"
+            results, _ = run_chain_rowcat(h, device, max_step=args.steps, iters=args.iters,
+                                          native_stats=native_stats)
+            p = None  # every step's whole CSR was checked against the oracle
+        else:
+            kernel = args.kernel
+            results, p = run_chain_dense_acc(h, device, max_step=args.steps,
+                                             iters=args.iters, native_stats=native_stats,
+                                             kernel=kernel)
     total = sum(r.seconds for r in results) + extra.get("densify_ms", 0.0) / 1e3
     print(f"chain total (A^2..A^{args.steps}{', incl. densify' if extra else ''}): "
           f"{total * 1e3:.4f}ms on {device_name(device)}  [reference CSR-par total "
           f"~102 ms]", flush=True)
     if native_final is not None:
-        verify_final_values(p, native_final)
+        if p is not None:
+            verify_final_values(p, native_final)
         _log("per-step (nnz, max) and final values agree with the native oracle")
 
     last = results[-1]

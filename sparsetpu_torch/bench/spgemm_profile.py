@@ -37,7 +37,8 @@ from .chain import build_torus_host, sparse_operand
 from .spgemm_bench import ALGOS, algo_call, case_operand, make_cases
 
 
-def _device_us(event) -> float:
+def device_us(event) -> float:
+    """A profiler event's self device time in microseconds."""
     # the attribute's name differs between PyTorch releases
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -60,8 +61,8 @@ def profile_call(fn, top: int = 6) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
-                      if _device_us(e) > 0), key=lambda x: -x[1])
+    by_name = sorted(((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+                      if device_us(e) > 0), key=lambda x: -x[1])
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 idle_share=max(0.0, 1.0 - device_ms / wall_ms), kernels=len(kernels),
                 top=[(name[:60], ms, calls) for name, ms, calls in by_name[:top]])

@@ -32,6 +32,18 @@ from .semiring import U64, Semiring, Value, by_name
 SEMIRINGS = ("u64", "u32", "f32")
 F32_EXACT_LIMIT = float(1 << 24)  # integers carried in f32 are exact below this
 _SATURATE = {"u64": (1 << 64) - 1, "u32": (1 << 32) - 1}
+DEFAULT_DEVICE = "cuda"  # where the entry points build unless asked for another
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  The entry points default to the
+    card; where no card is present, a CUDA device raises rather than fall
+    back to the CPU, which a caller must ask for (``device="cpu"``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA card is present for device {device}; pass "
+                           "device='cpu' to build on the CPU")
+    return device
 
 
 def _merge_coo(rows, cols, vals, n_cols: int, sr_name: str):
@@ -190,7 +202,8 @@ class SparseCSR:
     # -- construction --------------------------------------------------------
     @staticmethod
     def empty(n_rows: int, n_cols: int, capacity: int, sr: Semiring,
-              device="cpu") -> "SparseCSR":
+              device=DEFAULT_DEVICE) -> "SparseCSR":
+        device = resolve_device(device)
         return SparseCSR(
             row_ptr=torch.zeros(n_rows + 1, dtype=torch.int32, device=device),
             col_idx=torch.full((capacity,), INT32_SENTINEL, dtype=torch.int32,
@@ -201,8 +214,9 @@ class SparseCSR:
 
     @staticmethod
     def identity(n: int, capacity: Optional[int] = None, sr: Semiring = U64,
-                 device="cpu") -> "SparseCSR":
+                 device=DEFAULT_DEVICE) -> "SparseCSR":
         """The n x n identity (the semiring's one on the diagonal)."""
+        device = resolve_device(device)
         cap = capacity or n
         if cap < n:
             raise ValueError(f"capacity {cap} < n {n}")
@@ -247,8 +261,9 @@ class SparseCSR:
     @staticmethod
     def from_coo(rows, cols, vals, n_rows: int, n_cols: Optional[int] = None,
                  sr: Semiring = U64, capacity: Optional[int] = None,
-                 device="cpu") -> "SparseCSR":
+                 device=DEFAULT_DEVICE) -> "SparseCSR":
         """COO -> CSR from numpy arrays or lists, built on ``device``."""
+        device = resolve_device(device)
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         n_cols = n_rows if n_cols is None else n_cols
@@ -280,9 +295,10 @@ class SparseCSR:
 
     @staticmethod
     def from_host_arrays(row_ptr, col_idx, limbs, nnz: int, n_rows: int, n_cols: int,
-                         sr: Semiring, device="cpu") -> "SparseCSR":
+                         sr: Semiring, device=DEFAULT_DEVICE) -> "SparseCSR":
         """CSR arrays (``host_csr_arrays``' output, or a JAX ``SparseCSR``'s
         fields with uint32 limbs) copied to ``device`` in the port's types."""
+        device = resolve_device(device)
         return SparseCSR(
             row_ptr=torch.tensor(np.asarray(row_ptr, np.int32), device=device),
             col_idx=torch.tensor(np.asarray(col_idx, np.int32), device=device),
@@ -294,9 +310,10 @@ class SparseCSR:
     @staticmethod
     def from_coo_host(rows, cols, vals, n_rows: int, n_cols: Optional[int] = None,
                       sr: Semiring = U64, capacity: Optional[int] = None,
-                      device="cpu") -> "SparseCSR":
+                      device=DEFAULT_DEVICE) -> "SparseCSR":
         """COO -> CSR merged in numpy, then one copy to ``device``; the same
         result as ``from_coo``."""
+        device = resolve_device(device)
         n_cols = n_rows if n_cols is None else n_cols
         row_ptr, col_idx, limbs, nnz = SparseCSR.host_csr_arrays(
             rows, cols, vals, n_rows, n_cols, sr, capacity)

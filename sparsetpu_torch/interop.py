@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .csr import SEMIRINGS, HostCSR, SparseCSR
+from .csr import DEFAULT_DEVICE, SEMIRINGS, HostCSR, SparseCSR, resolve_device
 from .kernels.blocksparse import BlockSparseMatrix
 from .semiring import by_name
 
@@ -53,7 +53,7 @@ def band_from_jax_planes(planes, base_planes) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def sparse_csr_from_jax(row_ptr, col_idx, limbs, nnz, n_rows: int, n_cols: int,
-                        sr_name: str, device="cpu") -> SparseCSR:
+                        sr_name: str, device=DEFAULT_DEVICE) -> SparseCSR:
     """The port's device ``SparseCSR`` from the numpy arrays of a JAX
     ``SparseCSR``'s fields, keeping its capacity (padding included) and its
     limbs: uint32 limbs widen to the port's int64, f32 stays f32."""
@@ -62,8 +62,9 @@ def sparse_csr_from_jax(row_ptr, col_idx, limbs, nnz, n_rows: int, n_cols: int,
 
 
 def block_sparse_from_jax(blocks, block_rows, block_cols, shape, block_shape,
-                          device="cpu") -> BlockSparseMatrix:
+                          device=DEFAULT_DEVICE) -> BlockSparseMatrix:
     """The port's ``BlockSparseMatrix`` from the arrays of a JAX one."""
+    device = resolve_device(device)
     return BlockSparseMatrix(
         blocks=torch.tensor(np.asarray(blocks, np.float32), device=device),
         block_rows=torch.tensor(np.asarray(block_rows, np.int32), device=device),

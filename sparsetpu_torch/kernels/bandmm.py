@@ -1,7 +1,8 @@
 """Band measures for the router, ported from ``sparsetpu/kernels/bandmm.py``.
 
-Only ``cyclic_bandwidth`` is ported so far; the block-band product itself is
-a later slice (ROADMAP queue 1, item 13).
+Only ``cyclic_bandwidth`` is ported so far; the block-band product itself
+comes with the rest of ``ops/hybrid.py`` (``hybrid_matmul``), as ROADMAP
+queue 1 says.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..csr import DEFAULT_DEVICE, resolve_device
 from . import _build
 from .spmm import tf32_enabled
 
@@ -67,7 +68,9 @@ class BlockSparseMatrix:
         return out.transpose(1, 2).reshape(m, n)
 
     @staticmethod
-    def from_dense(x, block_shape=(BLOCK, BLOCK), device="cpu") -> "BlockSparseMatrix":
+    def from_dense(x, block_shape=(BLOCK, BLOCK),
+                   device=DEFAULT_DEVICE) -> "BlockSparseMatrix":
+        device = resolve_device(device)
         x = np.asarray(x, np.float32)
         m, n = x.shape
         bm, bn = block_shape
@@ -183,11 +186,12 @@ def group_block_pairs(g: int, h: int, block: int, occ_q: np.ndarray,
 
 
 def attention_block_operands(q4: np.ndarray, k4: np.ndarray, block: int = BLOCK,
-                             device="cpu"):
+                             device=DEFAULT_DEVICE):
     """(b, s, h, d) Q and K -> the SDD operands: Q and K flattened to
     (pad_rows, dpad) f32 on ``device`` (rows padded to the block, d to a
     multiple of 8), and the pair list (qi, ki) as int32 tensors.  Returns
     (qf, kf, qi, ki, meta)."""
+    device = resolve_device(device)
     b, s, h, d = q4.shape
     g = b * s
     rows = g * h
@@ -211,7 +215,7 @@ def attention_block_operands(q4: np.ndarray, k4: np.ndarray, block: int = BLOCK,
 
 
 def block_sparse_attention_scores(q4: np.ndarray, k4: np.ndarray, block: int = BLOCK,
-                                  device="cpu"):
+                                  device=DEFAULT_DEVICE):
     """Block-sparse attention scores (bshd,bsgd->bshg) on (block, block) tiles.
 
     Flattens (b, s, h) to rows, pads to the block, builds the group-diagonal

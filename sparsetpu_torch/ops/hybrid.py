@@ -3,7 +3,7 @@
 ``choose_strategy`` keeps the JAX package's rule and constants unchanged,
 including ``dense_bytes <= 4e9`` and the 1024-column padding, so that the two
 routers can be held equal in the tests.  Re-deriving them for an 80 GB card
-is a ROADMAP item (queue 1, item 5).
+is a ROADMAP item (the constants for 80 GB, beside ``spgemm_auto``).
 """
 
 from __future__ import annotations
@@ -23,9 +23,12 @@ def choose_strategy(a: HostCSR, steps: int = 1) -> str:
 
       - "dense-acc": the product densifies (expected final row degree
         deg^(steps+1) reaches 1% of n) and the dense product fits
-        (kernels/spmm.py, the only route the port has so far);
-      - "band": (cyclic-)banded support with an occupied band;
-      - "esc": everything else, and any value beyond the f32 carrier.
+        (kernels/spmm.py);
+      - "band": (cyclic-)banded support with an occupied band (the
+        block-band product, sparsetpu/kernels/bandmm.py: not in the port);
+      - "esc": everything else, and any value beyond the f32 carrier (the
+        chain driver runs it as the rowcat chain, ops/rowcat.py, as
+        bench.py does).
     """
     n = a.n_rows
     nnz = a.nnz

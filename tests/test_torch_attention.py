@@ -60,8 +60,8 @@ def test_sparse_scores_match_jax_and_dense(density):
 
     jq = jscores.tensor_to_grouped_csr(q)
     jkt = jscores.tensor_to_grouped_csr(k, transpose_last=True)
-    q_csr = scores.tensor_to_grouped_csr(q)
-    kt_csr = scores.tensor_to_grouped_csr(k, transpose_last=True)
+    q_csr = scores.tensor_to_grouped_csr(q, device="cpu")
+    kt_csr = scores.tensor_to_grouped_csr(k, transpose_last=True, device="cpu")
     for port, jx in ((q_csr, jq), (kt_csr, jkt)):
         assert int(port.nnz) == int(jx.nnz) and port.shape == jx.shape
         np.testing.assert_array_equal(port.row_ptr.numpy(), np.asarray(jx.row_ptr))
@@ -93,7 +93,7 @@ def test_block_sparse_scores_match_jax(case):
     if zero_first:
         q.reshape(-1, shape[-1])[:128] = 0.0
     jblocks, jqi, jki, jmeta = jbs.block_sparse_attention_scores(q, k, block=128)
-    blocks, qi, ki, meta = bs.block_sparse_attention_scores(q, k, block=128)
+    blocks, qi, ki, meta = bs.block_sparse_attention_scores(q, k, block=128, device="cpu")
     np.testing.assert_array_equal(qi.numpy(), np.asarray(jqi))
     np.testing.assert_array_equal(ki.numpy(), np.asarray(jki))
     assert qi.dtype == ki.dtype == torch.int32
@@ -166,16 +166,16 @@ def test_block_sparse_matrix_round_trip():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((256, 384)).astype(np.float32)
     x[:128, 128:256] = 0.0
-    m = bs.BlockSparseMatrix.from_dense(x, (128, 128))
+    m = bs.BlockSparseMatrix.from_dense(x, (128, 128), device="cpu")
     jm = jbs.BlockSparseMatrix.from_dense(x, (128, 128))
     assert m.nblocks == jm.nblocks == 5
     assert m.density() == jm.density() and m.memory_bytes() == jm.memory_bytes()
     np.testing.assert_array_equal(m.to_dense().numpy(), x)
     carried = block_sparse_from_jax(jm.blocks, jm.block_rows, jm.block_cols, jm.shape,
-                                    jm.block_shape)
+                                    jm.block_shape, device="cpu")
     np.testing.assert_array_equal(carried.to_dense().numpy(), np.asarray(jm.to_dense()))
     np.testing.assert_array_equal(carried.block_rows.numpy(), m.block_rows.numpy())
-    empty = bs.BlockSparseMatrix.from_dense(np.zeros((128, 128), np.float32))
+    empty = bs.BlockSparseMatrix.from_dense(np.zeros((128, 128), np.float32), device="cpu")
     assert empty.nblocks == 1 and not empty.to_dense().any()
 
 

@@ -217,6 +217,7 @@ def test_main_runs_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("switches,algo,kernel", [
     (["--algo", "foldband"], "foldband", "band"),
     (["--kernel", "group-dot"], "auto", "group-dot"),
+    (["--algo", "rowcat"], "rowcat", "rowcat"),
 ])
 def test_main_switches_run_on_cpu(capsys, switches, algo, kernel):
     record = tchain.main(["--quick", "--device", "cpu", "--steps", "4", "--iters", "1",
@@ -263,10 +264,41 @@ def test_main_without_cuda_raises():
 
 
 def test_main_refuses_unported_routes(monkeypatch):
-    for route in ("band", "esc"):
-        monkeypatch.setattr(tchain, "choose_strategy", lambda h, steps, r=route: r)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tchain.main(["--quick", "--device", "cpu", "--no-verify", "--steps", "3"])
+    monkeypatch.setattr(tchain, "choose_strategy", lambda h, steps: "band")
+    with pytest.raises(NotImplementedError, match="kernels/bandmm.py"):
+        tchain.main(["--quick", "--device", "cpu", "--no-verify", "--steps", "3"])
+
+
+def test_main_routes_esc_to_the_rowcat_chain(capsys):
+    """The 12^3 torus at --steps 2 routes to "esc" in both routers, and the
+    chain runs it as the rowcat chain (bench.py's mapping), every step's
+    whole CSR equal to the oracle's."""
+    h = tchain.build_torus_host(dims=(12, 12, 12))
+    assert choose_strategy(h, steps=1) == "esc"
+    assert jax_choose_strategy(jchain.build_torus_host(dims=(12, 12, 12)).to_device(),
+                               steps=1) == "esc"
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", "2", "--iters", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == record
+    assert record["verified"] and (record["algo"], record["kernel"]) == ("auto", "rowcat")
+    assert record["metric"] == "spgemm_chain_A2_nnz_per_s" and record["value"] > 0
+    assert sum(line.startswith("A^2 [rowcat cpu]") for line in out) == 1
+    with pytest.raises(ValueError, match="rowcat"):
+        tchain.main(["--quick", "--device", "cpu", "--steps", "2", "--kernel", "group-dot"])
+
+
+def test_rowcat_chain_matches_oracle_and_raises_on_disagreement(torus4):
+    _, th, stats, final = torus4
+    results, c = tchain.run_chain_rowcat(th, "cpu", max_step=4, iters=1, native_stats=stats,
+                                         verbose=False)
+    assert [(r.step, r.nnz, r.max_value, r.flops) for r in results] == \
+        [(s, nnz, float(mx), fl) for s, nnz, mx, fl in stats]
+    for got, want in zip(c.to_numpy(), final):
+        np.testing.assert_array_equal(got.astype(want.dtype), want)
+    bad = [stats[0], (3, stats[1][1], stats[1][2] + 1, stats[1][3]), stats[2]]
+    with pytest.raises(RuntimeError, match="A\\^3"):
+        tchain.run_chain_rowcat(th, "cpu", max_step=4, iters=1, native_stats=bad,
+                                verbose=False)
 
 
 def test_port_never_imports_jax():

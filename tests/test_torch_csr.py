@@ -18,9 +18,12 @@ from sparsetpu import semiring as jsr
 from sparsetpu.csr import SparseCSR as JCSR
 from sparsetpu.ops import segments as jseg
 
+from sparsetpu_torch import interop
 from sparsetpu_torch import semiring as psr
+from sparsetpu_torch.attention import scores
 from sparsetpu_torch.csr import SparseCSR
 from sparsetpu_torch.interop import sparse_csr_from_jax
+from sparsetpu_torch.kernels import blocksparse
 from sparsetpu_torch.ops import segments as pseg
 
 SRS = ["u32", "u64", "f32"]
@@ -62,9 +65,11 @@ def test_from_coo_device_and_host(name):
     rows, cols, vals, n_rows, n_cols = _coo(name)
     jsr_, psr_ = jsr.by_name(name), psr.by_name(name)
     want = JCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=jsr_, capacity=128)
-    got = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr_, capacity=128)
+    got = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr_, capacity=128,
+                             device="cpu")
     _assert_same(got, want, name)
-    host = SparseCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=psr_, capacity=128)
+    host = SparseCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=psr_, capacity=128,
+                                  device="cpu")
     _assert_same(host, JCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=jsr_,
                                           capacity=128), name)
     # host and device builds agree within the port, and with the JAX arrays
@@ -87,20 +92,23 @@ def test_from_coo_device_and_host(name):
     # the interop copy of JAX's matrix is the same matrix, capacity and limbs
     carried = sparse_csr_from_jax(np.asarray(want.row_ptr), np.asarray(want.col_idx),
                                   [np.asarray(l) for l in want.values], int(want.nnz),
-                                  n_rows, n_cols, name)
+                                  n_rows, n_cols, name, device="cpu")
     _assert_same(carried, want, name)
 
 
 def test_capacity_overflow_poisons():
     rows, cols, vals, n_rows, n_cols = _coo("u64")
     want = JCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=jsr.U64, capacity=8)
-    got = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr.U64, capacity=8)
+    got = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr.U64, capacity=8,
+                             device="cpu")
     assert int(want.nnz) == int(got.nnz) == -1
     with pytest.raises(ValueError, match="capacity overflow"):
         got.check()
     with pytest.raises(ValueError):
-        SparseCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=psr.U64, capacity=8)
-    ok = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr.U64, capacity=128)
+        SparseCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=psr.U64, capacity=8,
+                                device="cpu")
+    ok = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr.U64, capacity=128,
+                            device="cpu")
     assert ok.check() is ok
 
 
@@ -113,7 +121,8 @@ def test_key_wider_than_int32():
     cols = np.array([69_999, 69_999, 69_999, 1, 69_999, 0])
     vals = np.array([1, 2, 3, 4, 5, 0], np.uint64)
     want = JCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=jsr.U32, capacity=8)
-    got = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr.U32, capacity=8)
+    got = SparseCSR.from_coo(rows, cols, vals, n_rows, n_cols, sr=psr.U32, capacity=8,
+                             device="cpu")
     _assert_same(got, want, "u32")
     _, c, v = got.to_numpy()
     np.testing.assert_array_equal(c, [69_999, 1, 69_999])
@@ -121,12 +130,13 @@ def test_key_wider_than_int32():
 
 
 def test_empty_with_capacity_and_memory():
-    e = SparseCSR.empty(4, 5, 8, psr.U64)
+    e = SparseCSR.empty(4, 5, 8, psr.U64, device="cpu")
     je = JCSR.empty(4, 5, 8, jsr.U64)
     _assert_same(e, je, "u64")
     # f32 limbs are 4 bytes in both packages; integer limbs are 8 in the port
     rows, cols, vals, n_rows, n_cols = _coo("f32")
-    f = SparseCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=psr.F32SR, capacity=100)
+    f = SparseCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=psr.F32SR, capacity=100,
+                                device="cpu")
     jf = JCSR.from_coo_host(rows, cols, vals, n_rows, n_cols, sr=jsr.F32SR, capacity=100)
     assert f.memory_bytes() == jf.memory_bytes()
     assert e.memory_bytes() == 5 * 4 + 8 * (4 + 8 + 8)
@@ -241,8 +251,40 @@ def test_segment_of_2_16_nonzeros_diverges_on_purpose():
     vals = np.full(m, 3, np.uint64)
     want = JCSR.from_coo(rows, cols, vals, 2, 2, sr=jsr.U32, capacity=4)
     assert int(want.nnz) == -1
-    got = SparseCSR.from_coo(rows, cols, vals, 2, 2, sr=psr.U32, capacity=4)
+    got = SparseCSR.from_coo(rows, cols, vals, 2, 2, sr=psr.U32, capacity=4, device="cpu")
     assert int(got.check().nnz) == 1
     assert int(got.to_numpy()[2][0]) == 3 * m
     # the host merges of both packages are exact too
     assert int(JCSR.from_coo_host(rows, cols, vals, 2, 2, sr=jsr.U32).nnz) == 1
+
+
+_DEFAULT_DEVICE_CALLS = {
+    "SparseCSR.empty": lambda: SparseCSR.empty(4, 5, 8, psr.U64),
+    "SparseCSR.identity": lambda: SparseCSR.identity(4),
+    "SparseCSR.from_coo": lambda: SparseCSR.from_coo([0, 1], [1, 0], [1, 2], 2),
+    "SparseCSR.from_host_arrays": lambda: SparseCSR.from_host_arrays(
+        [0, 1, 1], [0], [np.ones(1, np.uint64), np.zeros(1, np.uint64)], 1, 2, 2, psr.U64),
+    "SparseCSR.from_coo_host": lambda: SparseCSR.from_coo_host([0, 1], [1, 0], [1, 2], 2),
+    "scores.tensor_to_grouped_csr": lambda: scores.tensor_to_grouped_csr(
+        np.ones((1, 2, 2, 3), np.float32)),
+    "BlockSparseMatrix.from_dense": lambda: blocksparse.BlockSparseMatrix.from_dense(
+        np.ones((128, 128), np.float32)),
+    "blocksparse.attention_block_operands": lambda: blocksparse.attention_block_operands(
+        np.ones((1, 2, 2, 8), np.float32), np.ones((1, 2, 2, 8), np.float32)),
+    "blocksparse.block_sparse_attention_scores":
+        lambda: blocksparse.block_sparse_attention_scores(
+            np.ones((1, 2, 2, 8), np.float32), np.ones((1, 2, 2, 8), np.float32)),
+    "interop.sparse_csr_from_jax": lambda: interop.sparse_csr_from_jax(
+        [0, 1, 1], [0], [np.ones(1, np.uint32), np.zeros(1, np.uint32)], 1, 2, 2, "u64"),
+    "interop.block_sparse_from_jax": lambda: interop.block_sparse_from_jax(
+        np.ones((1, 128, 128), np.float32), [0], [0], (128, 128), (128, 128)),
+}
+
+
+@pytest.mark.parametrize("name", list(_DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """Called without a device, the entry points build on the card; where
+    there is none they raise, and never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card.*device='cpu'"):
+        _DEFAULT_DEVICE_CALLS[name]()

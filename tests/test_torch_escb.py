@@ -98,10 +98,10 @@ def test_merge_disjoint_rows_matches_jax():
 
 
 def test_empty_and_identity():
-    eye = SparseCSR.identity(8)
+    eye = SparseCSR.identity(8, device="cpu")
     c = pescb.spgemm_blocked(eye, eye, L=16)
     np.testing.assert_array_equal(c.to_dense_numpy(), np.eye(8, dtype=np.uint64))
-    empty = SparseCSR.empty(5, 5, 4, eye.sr)
+    empty = SparseCSR.empty(5, 5, 4, eye.sr, device="cpu")
     assert int(pescb.spgemm_blocked(empty, empty).check().nnz) == 0
 
 

@@ -122,7 +122,7 @@ def test_thinned_chain_matches_jax():
 
 
 def test_identity_matches_jax():
-    eye = SparseCSR.identity(12)
+    eye = SparseCSR.identity(12, device="cpu")
     j = JCSR.identity(12)
     np.testing.assert_array_equal(eye.row_ptr.numpy(), np.asarray(j.row_ptr))
     np.testing.assert_array_equal(eye.col_idx.numpy(), np.asarray(j.col_idx))
@@ -164,15 +164,15 @@ def test_kernel_route_and_routes_by_shape():
     assert prc.kernel_route(16384, 2, True) and not prc.kernel_route(65536, 2, True)
     assert not prc.kernel_route(64, 1, False)
     cats = ((64, 8, 5, 0), (65536, 8, 1, 5))
-    a = SparseCSR.identity(4, sr=U64)
+    a = SparseCSR.identity(4, sr=U64, device="cpu")
     assert prc.category_routes(a, cats) == [(64, 5, "sortmerge_rows"), (65536, 1, "batched")]
     assert prc.category_routes(a, cats, use_kernel=False)[0][2] == "batched"
 
 
 def test_shape_mismatch_raises():
-    a = SparseCSR.identity(4)
+    a = SparseCSR.identity(4, device="cpu")
     with pytest.raises(ValueError):
-        prc.spgemm_rowcat(a, SparseCSR.identity(5))
+        prc.spgemm_rowcat(a, SparseCSR.identity(5, device="cpu"))
 
 
 @pytest.mark.cuda

@@ -176,7 +176,7 @@ def test_large_nm_keys():
 
 
 def test_empty_and_poison():
-    e = SparseCSR.empty(5, 5, 4, U64)
+    e = SparseCSR.empty(5, 5, 4, U64, device="cpu")
     assert int(slab.spgemm_slab(e, e).check().nnz) == 0
     rows, cols, vals, n = jgen.random_graph(100, 800, seed=4)
     ja = _jcsr(rows, cols, vals, n)

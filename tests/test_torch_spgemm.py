@@ -44,7 +44,7 @@ def _operands(graph, mode):
     else:
         vals = rng.integers(1, top, len(rows)).astype(np.uint64)
     ja = JCSR.from_coo_host(rows, cols, vals, n, sr=jsr.by_name(sr_name))
-    pa = SparseCSR.from_coo_host(rows, cols, vals, n, sr=psr.by_name(sr_name))
+    pa = SparseCSR.from_coo_host(rows, cols, vals, n, sr=psr.by_name(sr_name), device="cpu")
     return ja, pa, narrow
 
 
@@ -104,7 +104,7 @@ def test_spadd_matches_jax(graph):
 def test_spadd_saturates_and_symbolic_flops_on_random_graph():
     rows, cols, _, n = GRAPHS["random300x900"]()
     vals = np.full(len(rows), (1 << 64) - 5, np.uint64)
-    a = SparseCSR.from_coo_host(rows, cols, vals, n, sr=psr.U64)
+    a = SparseCSR.from_coo_host(rows, cols, vals, n, sr=psr.U64, device="cpu")
     s = psp.spadd(a, a)
     assert set(s.to_numpy()[2].tolist()) == {(1 << 64) - 1}
     # the flop count is sum over A's entries of row_nnz(A)[col]: a per-row
@@ -129,7 +129,7 @@ def test_undersized_expand_cap_poisons(graph):
 
 def test_shape_and_option_checks():
     _, pa, _ = _operands("torus5x5x3", "f32")
-    b = SparseCSR.empty(pa.n_cols + 1, 3, 4, psr.F32SR)
+    b = SparseCSR.empty(pa.n_cols + 1, 3, 4, psr.F32SR, device="cpu")
     with pytest.raises(ValueError):
         psp.spgemm(pa, b, 16)
     with pytest.raises(ValueError):
