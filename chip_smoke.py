@@ -16,20 +16,24 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    arithmetic) on a P below 5 (one limb) and on a P that spans all three
    limbs, and its P domain: a value of 2^24, -1, 0.5, NaN or inf turns its
    warp's output tile into NaN and leaves the rest exact; the SDD
-   kernel at rtol 1e-5, atol 1e-4 (fp32 sums in another order than the
-   plain batched product's), at small shapes and on the full GPT-2 117M
-   pair list (config 1, T = 1,792 blocks); the sort-merge kernel for exact
-   equality (integer semirings, and f32 on integer values) at every row
-   length it takes, each semiring, with saturating, all-sentinel and
-   single-product rows, then on the real padded slab of the largest
-   kernel-covered category of the ER 27,000 x 32 product; the coalesce
+   kernel against both its plain versions (the batched fp32 product and
+   the 3xTF32 split of its own arithmetic) at rtol 1e-5, atol 1e-4 (sums
+   in another order), at small shapes (D = 8..136) and on the full GPT-2
+   117M pair list (config 1, T = 1,792 blocks); the sort-merge kernel
+   against both its plain versions (the stable sort and its own packed
+   keys) for exact equality (integer semirings, and f32 on integer values)
+   at every row length it takes, each semiring, with saturating,
+   all-sentinel and single-product rows, then on the real padded slab of
+   the largest kernel-covered category of the ER 27,000 x 32 product; the
+   coalesce
    kernel for exact equality (int32, int64 and f32 streams, K = 1..4, empty
    and full blocks, one block, L = 1..2^20, out_cap above and below the
    total), then on the real survivor streams of the mixed chain's A^4 slab
    and of the ER 27,000 x 32 slab.  Beside each kernel: its bound (the
-   larger of its compulsory bytes at 3.35 TB/s and its fp32 operations at
-   67 TFLOP/s, the H100 SXM data sheet) and, where PyTorch computes the
-   same function, that call's time (for coalesce, one masked_select a
+   larger of its compulsory bytes at 3.35 TB/s and its operations at the
+   H100 SXM data sheet's rate: fp32 at 67 TFLOP/s, SDD's 3xTF32 products
+   at 495 TFLOP/s with its fp32 bound beside) and, where PyTorch computes
+   the same function, that call's time (for coalesce, one masked_select a
    stream);
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
@@ -57,10 +61,14 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    (slot budget 2^24, K = 3 chunks) on ER 27,000 x 32, each equal to the
    oracle's whole CSR, with at least one coalesce launch each;
    Each path runs under torch.profiler, and every kernel's device time is
-   summed over it;
+   summed over it, warm-ups and repetitions included; one pass of each
+   path (one untimed call of each step: a chain's steps once, one product a
+   density or a graph) is profiled apart, for each kernel's pass launches
+   and pass device time;
 5. JSON lines (the kernels line: each kernel's launches and device time
-   summed over its path, its times, bound and library call), the card line,
-   and the contract line ``{"ok": true, "device": {...}}`` last.
+   summed over its path and over one pass, its times, bound and library
+   call), the card line, and the contract line
+   ``{"ok": true, "device": {...}}`` last.
 """
 
 import json
@@ -82,6 +90,7 @@ ATT_DENSITIES = (1e-3, 1e-2, 1e-1, 1.0)  # ESC runs at the first three (JAX's bu
 DIMS30 = (30, 30, 30)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores, data sheet
+TF32_FLOPS_PER_S = 495e12  # TF32 on the tensor cores, dense, data sheet
 SPGEMM_ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas")
 # (case, n, edges per node) -> nnz(C) of the published sweep
 # (reports/spgemm_sweep_full.csv): BASELINE configs 3-4, the whole grid
@@ -156,12 +165,12 @@ def compare_slabs(name, got, want) -> float:
                                      (want[0], *want[1])))
 
 
-def bound(nbytes: float, flops: float = 0.0):
+def bound(nbytes: float, flops: float = 0.0, flops_per_s: float = FP32_FLOPS_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of the bytes at the memory rate and the fp32 operations at
-    the CUDA cores' rate."""
+    the larger of the bytes at the memory rate and the operations at
+    ``flops_per_s`` (by default fp32 on the CUDA cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    t_flops = flops / flops_per_s * 1e3
     return (t_flops, "operations") if t_flops > t_bytes else (t_bytes, "bytes")
 
 
@@ -218,12 +227,12 @@ def main() -> None:
         build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
         run_chain_foldband, run_chain_mixed, run_chain_rowcat, sparse_operand,
         unfold_band, verify_final_values)
-    from sparsetpu_torch.bench import spgemm_bench
+    from sparsetpu_torch.bench import sortmerge_phases, spgemm_bench
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
     from sparsetpu_torch.kernels import (_build, bandplanes, blocksparse, coalesce,
                                          groupdot, sortmerge, spmm)
-    from sparsetpu_torch.ops import colchunk, rowcat, slab as slab_ops
+    from sparsetpu_torch.ops import colchunk, slab as slab_ops
     from sparsetpu_torch.ops.hybrid import choose_strategy
     from sparsetpu_torch.ops.segments import INT32_SENTINEL
 
@@ -491,47 +500,61 @@ def main() -> None:
                   f"{t['three_limb_full_step_ms']:.4f} ms; limb plain version "
                   f"{t['limbs_plain_ms']:.4f} ms on the slice", flush=True)
 
-    # SDD block scores: small shapes (D of 8, 32, 64; a pair list with
-    # repeats; a single pair), then the full GPT-2 117M pair list
-    for d in (8, 32, 64):
+    def sdd_case(name, q, k, qi, ki):
+        """The kernel against both plain versions (the batched fp32 product,
+        and the 3xTF32 split of its own arithmetic)."""
+        got = blocksparse.sdd_block_scores(q, k, qi, ki)
+        err["sdd_block_scores"] = max(err["sdd_block_scores"], *(
+            compare_close(f"sdd_block_scores {name} ({label})", got, plain(q, k, qi, ki),
+                          SDD_RTOL, SDD_ATOL)
+            for label, plain in (("plain", blocksparse.sdd_block_scores_reference),
+                                 ("3xTF32 plain", blocksparse.sdd_block_scores_3xtf32_reference))))
+
+    # SDD block scores: small shapes (D of 8, 32, 64 with Q kept whole, 72
+    # and 136 with Q staged by chunks; a pair list with repeats; a single
+    # pair), then the full GPT-2 117M pair list
+    for d in (8, 32, 64, 72, 136):
         q = torch.randn(384, d, generator=gen, device=dev)
         k = torch.randn(512, d, generator=gen, device=dev)
         for qi_l, ki_l in (([0, 1, 1, 2, 0, 1], [3, 0, 0, 1, 3, 2]), ([2], [1])):
-            qi = torch.tensor(qi_l, dtype=torch.int32, device=dev)
-            ki = torch.tensor(ki_l, dtype=torch.int32, device=dev)
-            err["sdd_block_scores"] = max(err["sdd_block_scores"], compare_close(
-                f"sdd_block_scores D={d} T={len(qi_l)}",
-                blocksparse.sdd_block_scores(q, k, qi, ki),
-                blocksparse.sdd_block_scores_reference(q, k, qi, ki), SDD_RTOL, SDD_ATOL))
-    print(f"[3] sdd_block_scores == plain (rtol {SDD_RTOL}, atol {SDD_ATOL}) at D = 8, 32, "
-          f"64, pairs with repeats and a single pair", flush=True)
+            sdd_case(f"D={d} T={len(qi_l)}", q, k,
+                     torch.tensor(qi_l, dtype=torch.int32, device=dev),
+                     torch.tensor(ki_l, dtype=torch.int32, device=dev))
+    print(f"[3] sdd_block_scores == both plain versions (rtol {SDD_RTOL}, atol {SDD_ATOL}) at "
+          f"D = 8, 32, 64, 72, 136, pairs with repeats and a single pair", flush=True)
     shape1 = tipover.config_shape(tipover.GPT_CONFIGS[1])
     qf, kf, qi, ki, _ = blocksparse.attention_block_operands(
         random_sparse_tensor(shape1, 1.0, seed=0), random_sparse_tensor(shape1, 1.0, seed=1),
         device=dev)
     t_pairs = qi.numel()
     check(t_pairs == 1792, f"config 1 pair list has {t_pairs} pairs, not 1,792")
-    err["sdd_block_scores"] = max(err["sdd_block_scores"], compare_close(
-        "sdd_block_scores config 1", blocksparse.sdd_block_scores(qf, kf, qi, ki),
-        blocksparse.sdd_block_scores_reference(qf, kf, qi, ki), SDD_RTOL, SDD_ATOL))
+    sdd_case("config 1", qf, kf, qi, ki)
     k_ms = time_ms(lambda: blocksparse.sdd_block_scores(qf, kf, qi, ki), 50)
     p_ms = time_ms(lambda: blocksparse.sdd_block_scores_reference(qf, kf, qi, ki), 20)
     d = qf.shape[1]
     gflop = t_pairs * 128 * 128 * d * 2 / 1e9
     sdd_bytes = ((torch.unique(qi).numel() + torch.unique(ki).numel()) * 128 * d * 4
                  + t_pairs * 128 * 128 * 4 + 8 * t_pairs)
-    b_ms, b_by = bound(sdd_bytes, gflop * 1e9)
+    # the kernel's products: 3 TF32 products an fp32 one, on the tensor
+    # cores; the fp32 bound (the CUDA cores' rate) beside it
+    b_ms, b_by = bound(sdd_bytes, 3 * gflop * 1e9, TF32_FLOPS_PER_S)
     mask = sdd_library_mask(qi, ki, qf.shape[0], kf.shape[0])
     kt = kf.t().contiguous()
     timing["sdd_block_scores"] = dict(
         ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.sparse.sampled_addmm(mask, qf, kt, beta=0.0), 10),
+        fp32_bound_ms=bound(sdd_bytes, gflop * 1e9)[0],
+        split_plain_ms=time_ms(
+            lambda: blocksparse.sdd_block_scores_3xtf32_reference(qf, kf, qi, ki), 5),
         timed_on=f"GPT-2 117M (config 1) pair list, T={t_pairs}, D={d}, density 1.0")
+    t = timing["sdd_block_scores"]
     print(f"[3] sdd_block_scores on the config-1 pair list (T={t_pairs}, "
-          f"{gflop:.3f} GFLOP): kernel == plain (rtol {SDD_RTOL}, atol {SDD_ATOL}); kernel "
-          f"{k_ms:.4f} ms ({gflop / k_ms:.2f} TFLOP/s), plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}), sampled_addmm "
-          f"{timing['sdd_block_scores']['library_ms']:.4f} ms", flush=True)
+          f"{gflop:.3f} GFLOP): kernel == both plain versions (rtol {SDD_RTOL}, atol "
+          f"{SDD_ATOL}); kernel {k_ms:.4f} ms ({gflop / k_ms:.2f} TFLOP/s of the function), "
+          f"plain {p_ms:.4f} ms, 3xTF32 plain {t['split_plain_ms']:.4f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}, {sdd_bytes / 1e9:.4f} GB; 3 x {gflop:.3f} GFLOP of TF32 at "
+          f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; the fp32 bound {t['fp32_bound_ms']:.4f} "
+          f"ms), sampled_addmm {t['library_ms']:.4f} ms", flush=True)
     del qf, kf, qi, ki, mask, kt
     torch.cuda.empty_cache()
 
@@ -549,15 +572,26 @@ def main() -> None:
                            for _ in range(2 if sr_name == "u64" else 1))
 
     def sm_case(name, cols, limbs, sr_name):
-        err["sortmerge_rows"] = max(err["sortmerge_rows"], compare_slabs(
-            f"sortmerge_rows {name}", sortmerge.sortmerge_rows(cols, limbs, sr_name),
-            sortmerge.sortmerge_rows_reference(cols, limbs, sr_name)))
+        """The kernel against both plain versions (the stable sort, and the
+        packed keys of its own formulation): exact."""
+        got = sortmerge.sortmerge_rows(cols, limbs, sr_name)
+        err["sortmerge_rows"] = max(err["sortmerge_rows"], *(
+            compare_slabs(f"sortmerge_rows {name} ({label})", got, plain(cols, limbs, sr_name))
+            for label, plain in (("plain", sortmerge.sortmerge_rows_reference),
+                                 ("packed-key plain", sortmerge.sortmerge_rows_keys_reference))))
 
     lengths = [1 << k for k in range(sortmerge.MAX_L.bit_length())]
     for sr_name in ("u64", "u32", "f32"):
         for L in lengths:
             for rows in (1, 37):
                 sm_case(f"{sr_name} L={L} R={rows}", *rand_slab(rows, L, sr_name), sr_name)
+        # columns past 2^28 and negative ones: the kernel's 64-bit keys (the
+        # random slabs above fit its 32-bit ones)
+        for L in (64, 4096, sortmerge.MAX_L):
+            cols, limbs = rand_slab(5, L, sr_name)
+            cols[:3] = torch.where(cols[:3] == INT32_SENTINEL, cols[:3], cols[:3] + (1 << 28))
+            cols[3:] = torch.where(cols[3:] == INT32_SENTINEL, cols[3:], -1 - cols[3:])
+            sm_case(f"{sr_name} L={L} wide and negative columns", cols, limbs, sr_name)
     for L in (128, sortmerge.MAX_L):
         full_col = torch.full((4, L), 7, dtype=torch.int32, device=dev)
         top = torch.full((4, L), 0xFFFFFFFF, dtype=torch.int64, device=dev)
@@ -572,23 +606,17 @@ def main() -> None:
         one = sent.clone()
         one[torch.arange(4, device=dev), torch.tensor([0, 5, L // 2, L - 1], device=dev)] = 9
         sm_case(f"L={L} one product a row", one, (zero + 3, zero), "u64")
-    print(f"[3] sortmerge_rows == plain (exact) at L = 1..{sortmerge.MAX_L}, u64/u32/f32, "
-          f"and saturating, all-sentinel and single-product rows", flush=True)
+    print(f"[3] sortmerge_rows == both plain versions (exact) at L = 1..{sortmerge.MAX_L}, "
+          f"u64/u32/f32 (32-bit keys; 64-bit keys on wide and negative columns), and "
+          f"saturating, all-sentinel and single-product rows", flush=True)
 
     # ... and on the real slab of the largest kernel-covered category of the
     # ER 27,000 x 32 product, built as numeric_cat builds it
     (_, er_n, _, er_coo), = spgemm_bench.make_cases(sides=(27000,), e_per_n=(32,),
                                                     power_law_sides=())
     a_er = spgemm_bench.case_operand(er_coo, dev)
-    fr, _, perm, cats, _, cap_g, _ = rowcat.rowcat_config(a_er, a_er)
-    L, rp, nr, off = max((c for c in cats if sortmerge.available(c[0], 2)),
-                         key=lambda c: c[0])
-    shared = rowcat.shared_stream(a_er, a_er, cap_g)
-    slab = rowcat.expand_cat(a_er, a_er, rowcat.category_rows(perm, er_n, rp, nr, off), fr,
-                             L, shared)
-    err["sortmerge_rows"] = max(err["sortmerge_rows"], compare_slabs(
-        f"sortmerge_rows ER 27000x32 L={L} slab", sortmerge.sortmerge_rows(*slab, "u64"),
-        sortmerge.sortmerge_rows_reference(*slab, "u64")))
+    *slab, L, rp, nr = sortmerge_phases.largest_kernel_slab(a_er)
+    sm_case(f"ER 27000x32 L={L} slab", *slab, "u64")
     # read once, written once: the data (an int32 column and uint32 limbs a
     # slot) sets the bound; the port's format carries each limb in an int64
     slab_bytes = 2 * slab[0].numel() * (4 + 4 * len(slab[1]))
@@ -597,16 +625,18 @@ def main() -> None:
     timing["sortmerge_rows"] = dict(
         ms=time_ms(lambda: sortmerge.sortmerge_rows(*slab, "u64"), 10),
         plain_ms=time_ms(lambda: sortmerge.sortmerge_rows_reference(*slab, "u64"), 3),
+        keys_plain_ms=time_ms(lambda: sortmerge.sortmerge_rows_keys_reference(*slab, "u64"), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,  # torch.sort alone does not merge
         format_bound_ms=bound(format_bytes)[0],
         timed_on=f"ER 27,000 x 32 category L={L}: ({rp}, {L}) u64 slab, {nr} real rows")
     t = timing["sortmerge_rows"]
-    print(f"[3] sortmerge_rows on {t['timed_on']}: kernel == plain (exact); kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+    print(f"[3] sortmerge_rows on {t['timed_on']}: kernel == both plain versions (exact); "
+          f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, packed-key plain "
+          f"{t['keys_plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
           f"{slab_bytes / 1e9:.3f} GB of data; the int64-limb format's "
           f"{format_bytes / 1e9:.3f} GB take {t['format_bound_ms']:.4f} ms), library none",
           flush=True)
-    del fr, perm, shared, slab
+    del slab
     torch.cuda.empty_cache()
 
     # coalesce: every stream type, K = 1..4, empty and full blocks, one
@@ -707,22 +737,34 @@ def main() -> None:
     print(f"[4] choose_strategy -> {strategy}", flush=True)
     check(strategy == "dense-acc", f"route is {strategy!r}, not 'dense-acc'")
 
+    # one pass of a path: one untimed call of each of its steps (a chain's
+    # steps once, one product a density or a graph), profiled apart from the
+    # timed runs, whose warm-ups and repetitions path_ms sums
+    pass_stats = {name: [0, 0.0] for name in counters}
+
+    def one_pass(kernel, fn):
+        reset_counts()
+        _, ms = profiled(fn, counters)
+        pass_stats[kernel][0] += counters[kernel].LAUNCHES
+        pass_stats[kernel][1] += ms[kernel]
+
     paths = [
         ("dense-acc", "spmm_dense_acc",
-         lambda: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=3, native_stats=stats)),
+         lambda it: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=it, native_stats=stats)),
         ("foldband", "spmm_band",
-         lambda: run_chain_foldband(h30, dev, DIMS30, max_step=STEPS, iters=3,
-                                    native_stats=stats)),
+         lambda it: run_chain_foldband(h30, dev, DIMS30, max_step=STEPS, iters=it,
+                                       native_stats=stats)),
         ("group-dot", "spmm_group_dot",
-         lambda: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=3, native_stats=stats,
-                                     kernel="group-dot")),
+         lambda it: run_chain_dense_acc(h30, dev, max_step=STEPS, iters=it, native_stats=stats,
+                                        kernel="group-dot")),
     ]
     # each path runs under torch.profiler: path_ms[path][kernel] is the
     # kernel's device time summed over the path
     launches, chain_ms, path_ms = {}, {}, {}
     for path, kernel, run in paths:
+        one_pass(kernel, lambda: run(1))
         reset_counts()
-        out, path_ms[path] = profiled(run, counters)
+        out, path_ms[path] = profiled(lambda: run(3), counters)
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
         results = out[0]
         got = [(r.step, r.nnz, int(r.max_value)) for r in results]
@@ -768,6 +810,11 @@ def main() -> None:
     att_rows, sdd_launches = {}, 0
     path_ms["attention"] = dict.fromkeys(counters, 0.0)
     for density in ATT_DENSITIES:
+        qf, kf, qi, ki, _ = blocksparse.attention_block_operands(
+            random_sparse_tensor(shape1, density, seed=0),
+            random_sparse_tensor(shape1, density, seed=1), device=dev)
+        one_pass("sdd_block_scores", lambda: blocksparse.sdd_block_scores(qf, kf, qi, ki))
+        del qf, kf, qi, ki
         reset_counts()
         csv, ms = profiled(lambda: tipover.sweep_config(
             tipover.GPT_CONFIGS[1], iters=3, densities=[density], device=dev, verbose=False),
@@ -794,6 +841,12 @@ def main() -> None:
     sweep, sm_launches = {}, 0
     path_ms["spgemm sweep"] = dict.fromkeys(counters, 0.0)
     for (case, n, epn), nnz_c in SPGEMM_CASES.items():
+        (*_, coo), = spgemm_bench.make_cases(
+            sides=(n,) if case == "er" else (), e_per_n=(epn,),
+            power_law_sides=(n,) if case == "powerlaw" else ())
+        a_x = spgemm_bench.case_operand(coo, dev)
+        one_pass("sortmerge_rows", spgemm_bench.algo_call(a_x, "rowcat_pallas"))
+        del a_x
         reset_counts()
         csv, ms = profiled(lambda: spgemm_bench.run(
             sides=(n,) if case == "er" else (), e_per_n=(epn,),
@@ -817,6 +870,8 @@ def main() -> None:
     launches["sortmerge_rows"] = sm_launches
 
     # the mixed chain: slab ESC A^2..A^4, densify, dense-acc A^5..A^7
+    one_pass("coalesce_blocks", lambda: run_chain_mixed(
+        h30, dev, max_step=STEPS, switch_step=5, iters=1, native_stats=stats))
     reset_counts()
     (results, p_final, t_dens), path_ms["mixed"] = profiled(
         lambda: run_chain_mixed(h30, dev, max_step=STEPS, switch_step=5, iters=3,
@@ -920,12 +975,14 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err[name], **timing[name],
             "path": path, "path_device_ms": on_path or None,
+            "pass_launches": pass_stats[name][0], "pass_device_ms": pass_stats[name][1],
         }
         if name in chain_ms:
             entry["chain_ms"] = chain_ms[name]
         kernels.append(entry)
-    print(json.dumps({"path_device_ms": path_ms, "rowcat_chain_steps_ms": rowcat_ms}),
-          flush=True)
+    print(json.dumps({"path_device_ms": path_ms, "rowcat_chain_steps_ms": rowcat_ms,
+                      "pass": {name: {"launches": n, "device_ms": ms}
+                               for name, (n, ms) in pass_stats.items()}}), flush=True)
     print(json.dumps({"attention_config1_us": {
         str(d): {"dense": float(ref.split("ref_time=")[1].split(" ")[0]),
                  **{impl: float(r[8]) for impl, r in rows.items()}}

@@ -7,9 +7,13 @@
   ``out[t] = Q[qi[t]*bm : +bm] @ K[ki[t]*bn : +bn]^T`` for a list of block
   pairs, the block-sparse attention primitive.  On a CUDA tensor it launches
   the hand-written kernel ``csrc/sdd_block_scores.cu`` (the counterpart of
-  ``_sdd_kernel``; fp32 FMAs, never TF32); on a CPU tensor it runs the plain
-  version ``sdd_block_scores_reference``, a gather of the blocks and one
-  batched product.
+  ``_sdd_kernel``; the tensor cores in a 3xTF32 split, never plain TF32); on
+  a CPU tensor it runs the plain version ``sdd_block_scores_reference``, a
+  gather of the blocks and one batched product.
+  ``sdd_block_scores_3xtf32_reference`` is the kernel's arithmetic in plain
+  PyTorch (three fp32 products of the TF32 halves, ``tf32_round`` and
+  ``tf32_truncate``); the tests and ``chip_smoke.py`` hold the kernel against
+  both.
 - ``block_sparse_attention_scores``: (b, s, h, d) Q and K -> the score blocks
   of the group-diagonal pairs whose Q and K blocks are both occupied, and
   ``scores_blocks_to_dense`` back to (b, s, h, h).
@@ -121,6 +125,43 @@ def sdd_block_scores_reference(q: torch.Tensor, k: torch.Tensor, qi: torch.Tenso
     qb = q.view(-1, block_m, d)[qi.long()]
     kb = k.view(-1, block_n, d)[ki.long()]
     return torch.bmm(qb, kb.transpose(1, 2))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: the int32 view's 13 low mantissa bits
+    rounded off (the sign-magnitude view rounds the magnitude).  Finite
+    inputs; a value that rounds past the largest float becomes inf, as on
+    the card."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> its 13 low mantissa bits cleared: the value an m16n8k8 .tf32
+    operand carries into the tensor cores when it is handed over as f32."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def sdd_block_scores_3xtf32_reference(q: torch.Tensor, k: torch.Tensor, qi: torch.Tensor,
+                                      ki: torch.Tensor, block_m: int = BLOCK,
+                                      block_n: int = BLOCK) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: each operand split as
+    hi = tf32_round(x) and lo = x - hi (exact in f32), which the tensor cores
+    read as tf32_truncate(lo), and three fp32 batched products of the
+    halves, the small terms first: lo_q hi_k^T + hi_q lo_k^T + hi_q hi_k^T.
+    Its fp32 products of TF32 values are exact, so TF32 being enabled would
+    not change it; on the card it still raises then, as the plain version
+    does, since the split's purpose is to stay off plain TF32."""
+    _check(q, k, qi, ki, block_m, block_n)
+    if q.device.type == "cuda" and tf32_enabled():
+        raise RuntimeError("TF32 is enabled for float32 products")
+    d = q.shape[1]
+    qb = q.view(-1, block_m, d)[qi.long()]
+    kb = k.view(-1, block_n, d)[ki.long()].transpose(1, 2)
+    q_hi, k_hi = tf32_round(qb), tf32_round(kb)
+    q_lo, k_lo = tf32_truncate(qb - q_hi), tf32_truncate(kb - k_hi)
+    return torch.bmm(q_lo, k_hi) + torch.bmm(q_hi, k_lo) + torch.bmm(q_hi, k_hi)
 
 
 def sdd_block_scores(q: torch.Tensor, k: torch.Tensor, qi: torch.Tensor,

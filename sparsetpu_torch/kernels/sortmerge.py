@@ -10,12 +10,18 @@ survivors to the front in ascending column order, the rest of the row
 int64 tensors, u32 as one int64 tensor, f32 as one float32 tensor.
 
 On a CUDA tensor ``sortmerge_rows`` launches the hand-written kernel
-``csrc/sortmerge_rows.cu`` (the counterpart of ``_kernel``): one block per
-row (or per 2048 / L rows), staged in shared memory, for L a power of two up
-to ``MAX_L`` = 16,384, beyond JAX's 2,048.  On a CPU tensor it runs the plain
-version ``sortmerge_rows_reference``: JAX's batched formulation (sort along
-the rows, the lane-axis segmented scan, a second sort to pack), which is
-also the route of ``ops/rowcat.py`` with ``use_kernel=False``.
+``csrc/sortmerge_rows.cu`` (the counterpart of ``_kernel``): a block holds
+max(L, 2,048) slots and sorts one key a slot, the column above the slot
+(64 bits, or 32 where the tile's columns fit), mostly in registers and warp
+shuffles, then merges and packs with segmented scans, for L a power of two
+up to ``MAX_L`` = 16,384, beyond JAX's 2,048.
+On a CPU tensor it runs the plain version ``sortmerge_rows_reference``:
+JAX's batched formulation (a stable sort along the rows, the lane-axis
+segmented scan, a second sort to pack), which is also the route of
+``ops/rowcat.py`` with ``use_kernel=False``.  ``sortmerge_rows_keys_reference``
+is the kernel's own formulation in plain PyTorch (packed keys, the pack as
+a scan of the keep flags); the tests and ``chip_smoke.py`` hold the kernel
+against both.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from ..ops.segments import INT32_SENTINEL
 from ..semiring import Value, by_name
 from . import _build
 
-MAX_L = 16384  # the longest row one block's shared memory holds (12 B a slot)
+MAX_L = 16384  # the longest row one block's shared memory holds (8 B a slot)
 LAUNCHES = 0   # kernel launches by sortmerge_rows (CUDA tensors only)
 _MODE = {"u64": 0, "u32": 1, "f32": 2}
 
@@ -69,6 +75,37 @@ def sortmerge_rows_reference(cols: torch.Tensor, limbs: Value,
     keyed = torch.where(keep, cols_s, INT32_SENTINEL)
     packed, perm2 = torch.sort(keyed, dim=1, stable=True)
     return packed, tuple(torch.gather(torch.where(keep, x, 0), 1, perm2) for x in totals)
+
+
+def sortmerge_rows_keys_reference(cols: torch.Tensor, limbs: Value,
+                                  sr_name: str) -> Tuple[torch.Tensor, Value]:
+    """The kernel's formulation in plain PyTorch (any L): one int64 key a
+    slot, (column << 32) | slot, sorted along the rows (keys are unique, so
+    equal columns keep their slot order, as a stable sort leaves them); the
+    values gathered by the sorted slot; head flags where the column changes
+    or a row starts and the semiring's segmented running sums; a run's last
+    slot kept when its column is real and its total not zero; each kept
+    slot's place the count of kept slots before it in its row (a scan of the
+    keep flags), the rest of the row ``(INT32_SENTINEL, 0)``."""
+    sr = by_name(sr_name)
+    R, L = cols.shape
+    slot = torch.arange(L, dtype=torch.int64, device=cols.device)
+    keys = torch.sort((cols.long() << 32) | slot, dim=1).values
+    cols_s = (keys >> 32).int()
+    limbs_s = tuple(torch.gather(x, 1, keys & 0xFFFFFFFF) for x in limbs)
+    head = torch.ones_like(cols_s, dtype=torch.bool)
+    head[:, 1:] = cols_s[:, 1:] != cols_s[:, :-1]
+    run, _ = segments.segment_reduce_sorted(sr, head, limbs_s, axis=1)
+    tail = torch.ones_like(head)
+    tail[:, :-1] = head[:, 1:]
+    keep = tail & (cols_s != INT32_SENTINEL) & ~sr.is_zero(run)
+    place = torch.where(keep, torch.cumsum(keep, dim=1) - 1, L)  # L: a dropped slot
+
+    def pack(x, fill):
+        out = x.new_full((R, L + 1), fill)
+        return out.scatter_(1, place, x)[:, :L]
+
+    return pack(cols_s, INT32_SENTINEL), tuple(pack(x, 0) for x in run)
 
 
 def sortmerge_rows(cols: torch.Tensor, limbs: Value,

@@ -10,7 +10,9 @@ against JAX's kernel rtol 1e-5, atol 1e-4, as the JAX package's own tests
 hold its kernel (the summation orders differ).
 
 On the CPU ``sdd_block_scores`` runs its plain version; the CUDA kernel is
-compared with it only where a card is present (marker ``cuda``).
+compared with it, and with the plain form of its own 3xTF32 arithmetic
+(``sdd_block_scores_3xtf32_reference``), only where a card is present
+(marker ``cuda``).
 """
 
 import numpy as np
@@ -130,18 +132,78 @@ def test_group_block_pairs_against_the_loop():
     assert len(qi) == 1792
 
 
-def test_sdd_plain_version_matches_jax_kernel():
+@pytest.fixture(scope="module")
+def sdd_normal():
+    """N(0, 1) operands, a pair list with a repeated pair, and JAX's kernel's
+    blocks (interpret mode, once for the module)."""
     rng = np.random.default_rng(1)
     q = rng.standard_normal((256, 64)).astype(np.float32)
     k = rng.standard_normal((384, 64)).astype(np.float32)
     qi = np.array([0, 1, 1, 0], np.int32)   # a repeated pair
     ki = np.array([2, 0, 1, 2], np.int32)
-    want = np.asarray(jbs.sdd_block_scores(q, k, qi, ki))
+    return q, k, qi, ki, np.asarray(jbs.sdd_block_scores(q, k, qi, ki))
+
+
+def test_sdd_plain_version_matches_jax_kernel(sdd_normal):
+    q, k, qi, ki, want = sdd_normal
     before = bs.LAUNCHES
     got = bs.sdd_block_scores(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(qi), torch.from_numpy(ki))
     assert bs.LAUNCHES == before  # the CPU path never counts a launch
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1 + 2.0**-12, 1 + 2.0**-11, 1 + 3 * 2.0**-11, -(1 + 2.0**-11),
+                      3 * 2.0**-120, 0.0, -2.0**100 * (1 + 2.0**-11 + 2.0**-20)])
+    want = [1.0, 1.0, 1 + 2.0**-10, 1 + 2.0**-9, -(1 + 2.0**-10),
+            3 * 2.0**-120, 0.0, -2.0**100 * (1 + 2.0**-10)]
+    assert bs.tf32_round(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    r = bs.tf32_round(y)
+    assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((r - y).abs() <= y.abs() * 2.0**-11).all()
+    # the lo half as the tensor cores read it: truncated toward zero
+    assert bs.tf32_truncate(torch.tensor([1 + 2.0**-11, -(1 + 3 * 2.0**-11)])).tolist() == [
+        1.0, -(1 + 2.0**-10)]
+    lo = y - r
+    tl = bs.tf32_truncate(lo)
+    assert ((tl.abs() <= lo.abs()) & ((lo - tl).abs() <= lo.abs() * 2.0**-10)).all()
+
+
+def test_sdd_3xtf32_formulation_matches_jax_kernel(sdd_normal):
+    """The kernel's arithmetic (three fp32 products of the TF32 halves: hi
+    rounded to nearest, lo truncated) against JAX's kernel at the kernel's
+    tolerance, on N(0, 1) operands."""
+    q, k, qi, ki, want = sdd_normal
+    got = bs.sdd_block_scores_3xtf32_reference(*map(torch.from_numpy, (q, k, qi, ki)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_sdd_3xtf32_keeps_the_reference_bar_under_cancellation():
+    """Operands of magnitude ~100 whose products cancel to ~1 % of their
+    terms: the 3xTF32 split stays within the reference's 1e-4 (the largest
+    error over the largest score) of JAX's kernel and of float64, where
+    plain TF32 (the hi halves alone) misses it."""
+    rng = np.random.default_rng(7)
+    q = (100 * rng.standard_normal((256, 64))).astype(np.float32)
+    k = (100 * rng.standard_normal((256, 64))).astype(np.float32)
+    k[:, 32:] = -k[:, :32]
+    q[:, 32:] = q[:, :32] + rng.standard_normal((256, 32)).astype(np.float32)
+    qi, ki = np.array([0, 1, 1], np.int32), np.array([1, 0, 1], np.int32)
+    want = np.asarray(jbs.sdd_block_scores(q, k, qi, ki))
+    exact = np.einsum("tid,tjd->tij", q.astype(np.float64).reshape(2, 128, 64)[qi],
+                      k.astype(np.float64).reshape(2, 128, 64)[ki])
+    tq, tk, tqi, tki = map(torch.from_numpy, (q, k, qi, ki))
+    got = bs.sdd_block_scores_3xtf32_reference(tq, tk, tqi, tki).numpy()
+    hi = torch.bmm(bs.tf32_round(tq.view(2, 128, 64)[tqi.long()]),
+                   bs.tf32_round(tk.view(2, 128, 64)[tki.long()]).transpose(1, 2)).numpy()
+    scale = np.abs(exact).max()
+    terms = np.abs(q).max() * np.abs(k).max() * 64
+    assert scale < 0.05 * terms  # the sums cancel
+    for ref in (want, exact):
+        assert np.abs(got - ref).max() <= 1e-4 * scale
+        assert np.abs(hi - ref).max() > 1e-4 * scale
 
 
 def test_sdd_checks():
@@ -240,8 +302,8 @@ def test_cuda_sdd_kernel_matches_plain_version():
             before = bs.LAUNCHES
             got = bs.sdd_block_scores(q, k, qi, ki)
             assert bs.LAUNCHES == before + 1
-            torch.testing.assert_close(got, bs.sdd_block_scores_reference(q, k, qi, ki),
-                                       rtol=1e-5, atol=1e-4)
+            for plain in (bs.sdd_block_scores_reference, bs.sdd_block_scores_3xtf32_reference):
+                torch.testing.assert_close(got, plain(q, k, qi, ki), rtol=1e-5, atol=1e-4)
     bad = bs.sdd_block_scores(q, k, torch.tensor([0, 3], dtype=torch.int32, device=dev),
                               torch.tensor([0, 0], dtype=torch.int32, device=dev))
     assert not bad[0].isnan().any() and bad[1].isnan().all()
@@ -249,3 +311,39 @@ def test_cuda_sdd_kernel_matches_plain_version():
         bs.sdd_block_scores(q, k, qi, ki, block_m=64, block_n=64)
     with pytest.raises(ValueError):
         bs.sdd_block_scores(q[:, :12].contiguous(), k[:, :12].contiguous(), qi, ki)
+
+
+@pytest.mark.cuda
+def test_cuda_sdd_kernel_walks_long_pair_lists():
+    """Pair lists longer than the persistent grid (several pairs a block):
+    sorted with runs of equal qi (the Q tile kept), unsorted with qi coming
+    back, and out-of-range pairs inside a run; D of 8, 64 (Q kept whole)
+    and 72, 136 (Q staged by chunks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for d in (8, 64, 72, 136):
+        q = torch.from_numpy(rng.standard_normal((128 * 40, d)).astype(np.float32)).to(dev)
+        k = torch.from_numpy(rng.standard_normal((128 * 30, d)).astype(np.float32)).to(dev)
+        qi = np.sort(rng.integers(0, 40, 1500)).astype(np.int32)
+        ki = rng.integers(0, 30, 1500).astype(np.int32)
+        shuffled = rng.permutation(1500)
+        for a, b in ((qi, ki), (qi[shuffled], ki[shuffled])):
+            got = bs.sdd_block_scores(q, k, torch.from_numpy(a).to(dev),
+                                      torch.from_numpy(b).to(dev))
+            want = bs.sdd_block_scores_reference(q, k, torch.from_numpy(a).to(dev),
+                                                  torch.from_numpy(b).to(dev))
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        bad_q, bad_k = qi.copy(), ki.copy()
+        bad_q[700], bad_k[701] = 40, -1
+        got = bs.sdd_block_scores(q, k, torch.from_numpy(bad_q).to(dev),
+                                  torch.from_numpy(bad_k).to(dev))
+        assert got[700].isnan().all() and got[701].isnan().all()
+        ok = torch.ones(1500, dtype=torch.bool, device=dev)
+        ok[700:702] = False
+        torch.testing.assert_close(got[ok], bs.sdd_block_scores_reference(
+            q, k, torch.from_numpy(qi).to(dev), torch.from_numpy(ki).to(dev))[ok],
+            rtol=1e-5, atol=1e-4)

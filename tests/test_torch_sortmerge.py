@@ -3,9 +3,11 @@ package's Pallas kernel (sparsetpu.kernels.sortmerge, interpret mode on the
 CPU, as tests/test_sortmerge.py runs it).
 
 On the CPU the wrapper runs the plain version; the CUDA kernel is held
-against it where a card is present (marker ``cuda``).  Tolerances: u32/u64
-and integer-valued f32 bit for bit; f32 of normal values 1e-5 relative
-(the two packages add a column's products in different orders).
+against it and against the plain form of its own formulation (packed keys,
+``sortmerge_rows_keys_reference``) where a card is present (marker
+``cuda``).  Tolerances: u32/u64 and integer-valued f32 bit for bit; f32 of
+normal values 1e-5 relative (the two packages add a column's products in
+different orders).
 """
 
 import numpy as np
@@ -63,12 +65,72 @@ def _assert_same(got, want, sr_name, rtol=0.0):
             np.testing.assert_array_equal(g.astype(w.dtype), w)
 
 
+def _special_rows(L, sr_name):
+    """8 rows: two all sentinels, two of one column at the largest values
+    (the u32/u64 sums saturate), two with a single product (the second
+    zero, so dropped), two of one column and value 1."""
+    cols = np.full((8, L), INT32_SENTINEL, np.int32)
+    top = 49 if sr_name == "f32" else 0xFFFFFFFF
+    vals = np.zeros((8, L), np.float32 if sr_name == "f32" else np.uint32)
+    cols[2:4], vals[2:4] = 5, top
+    cols[4, L // 3], vals[4, L // 3] = 9, 7
+    cols[5, L - 1] = 11
+    cols[6:8], vals[6:8] = 3, 1
+    return cols, [vals] * NLIMBS[sr_name]
+
+
+@pytest.fixture(scope="module")
+def jax_rows():
+    """(sr_name, L) -> (cols, limbs, JAX's result) on 24 rows: 16 random
+    ones (few columns: long runs of duplicates, and the u64 sums saturate)
+    above the 8 special rows; one interpret-mode call each, shared."""
+    cache = {}
+
+    def get(sr_name, L):
+        if (sr_name, L) not in cache:
+            cols, limbs = _case(16, L, 40, sr_name, seed=L + len(sr_name))
+            s_cols, s_limbs = _special_rows(L, sr_name)
+            cols = np.concatenate([cols, s_cols])
+            limbs = [np.concatenate([x, y]) for x, y in zip(limbs, s_limbs)]
+            cache[sr_name, L] = cols, limbs, _jax(cols, limbs, sr_name)
+        return cache[sr_name, L]
+
+    return get
+
+
 @pytest.mark.parametrize("L", [128, 256])
 @pytest.mark.parametrize("sr_name", ["u64", "u32", "f32"])
-def test_sortmerge_matches_jax(sr_name, L):
-    # few columns: long runs of duplicates, and the u64 sums saturate
-    cols, limbs = _case(16, L, 40, sr_name, seed=L + len(sr_name))
-    _assert_same(_port(cols, limbs, sr_name), _jax(cols, limbs, sr_name), sr_name)
+def test_sortmerge_matches_jax(sr_name, L, jax_rows):
+    cols, limbs, want = jax_rows(sr_name, L)
+    got = _port(cols[:16], [x[:16] for x in limbs], sr_name)
+    _assert_same(got, (want[0][:16], [x[:16] for x in want[1]]), sr_name)
+
+
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("sr_name", ["u64", "u32", "f32"])
+def test_packed_key_formulation_matches_jax(sr_name, L, jax_rows):
+    """The kernel's formulation (one (column << 32) | slot key a slot, the
+    pack as a scan of the keep flags) against JAX's kernel, with saturating,
+    all-sentinel and single-product rows."""
+    cols, limbs, want = jax_rows(sr_name, L)
+    got = _port(cols, limbs, sr_name, fn=psm.sortmerge_rows_keys_reference)
+    _assert_same(got, want, sr_name)
+    assert (got[0][16:18] == INT32_SENTINEL).all()
+    assert (got[0][18:20, 0] == 5).all() and (got[0][18:20, 1:] == INT32_SENTINEL).all()
+    top = 49 * L if sr_name == "f32" else 0xFFFFFFFF
+    assert all((x[18:20, 0] == top).all() for x in got[1])
+    assert [int(c) for c in got[0][20:22, 0]] == [9, INT32_SENTINEL]
+
+
+@pytest.mark.parametrize("sr_name", ["u64", "u32", "f32"])
+def test_packed_keys_equal_the_plain_version_at_any_length(sr_name):
+    """Both plain versions agree bit for bit at lengths JAX's kernel does not
+    take (1, 2, 48, 96), with negative columns (signed order) and ties."""
+    for R, L in ((7, 1), (5, 2), (6, 48), (3, 96)):
+        cols, limbs = _case(R, L, 9, sr_name, seed=R * L)
+        cols[0, : L // 2 + 1] = -3 - np.arange(L // 2 + 1)
+        _assert_same(_port(cols, limbs, sr_name, fn=psm.sortmerge_rows_keys_reference),
+                     _port(cols, limbs, sr_name, fn=psm.sortmerge_rows_reference), sr_name)
 
 
 def test_sortmerge_f32_normal_values_match_jax():
@@ -143,9 +205,9 @@ def test_cuda_sortmerge_kernel_matches_plain_version():
                 before = psm.LAUNCHES
                 got = _port(cols, limbs, sr_name, device="cuda")
                 assert psm.LAUNCHES == before + 1
-                want = _port(cols, limbs, sr_name, fn=psm.sortmerge_rows_reference,
-                             device="cuda")
-                _assert_same(got, want, sr_name)
+                for fn in (psm.sortmerge_rows_reference, psm.sortmerge_rows_keys_reference):
+                    _assert_same(got, _port(cols, limbs, sr_name, fn=fn, device="cuda"),
+                                 sr_name)
     cols = np.full((3, 4096), 7, np.int32)
     limbs = [np.full((3, 4096), 0xFFFFFFFF, np.uint32)] * 2
     got = _port(cols, limbs, "u64", device="cuda")
@@ -153,3 +215,26 @@ def test_cuda_sortmerge_kernel_matches_plain_version():
     with pytest.raises(ValueError):
         psm.sortmerge_rows(torch.zeros(2, 32768, dtype=torch.int32, device="cuda"),
                            (torch.zeros(2, 32768, device="cuda"),), "f32")
+
+
+@pytest.mark.cuda
+def test_cuda_sortmerge_kernel_special_rows_at_every_length():
+    """All-sentinel, saturating and single-product rows, one random row
+    with negative columns and one with columns past 2^28 (both take the
+    64-bit keys; small columns the 32-bit ones), at every L the kernel
+    takes, each semiring: the kernel equals both plain versions bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for sr_name in ("u64", "u32", "f32"):
+        for k in range(2, 15):
+            L = 1 << k
+            cols, limbs = _case(3, L, max(L // 3, 2), sr_name, seed=k)
+            cols[0, : L // 2] = -1 - np.arange(L // 2)
+            cols[1] = np.where(cols[1] == INT32_SENTINEL, cols[1], cols[1] + (1 << 28))
+            s_cols, s_limbs = _special_rows(L, sr_name)
+            cols = np.concatenate([s_cols, cols])
+            limbs = [np.concatenate([x, y]) for x, y in zip(s_limbs, limbs)]
+            got = _port(cols, limbs, sr_name, device="cuda")
+            for fn in (psm.sortmerge_rows_reference, psm.sortmerge_rows_keys_reference):
+                _assert_same(got, _port(cols, limbs, sr_name, fn=fn, device="cuda"), sr_name)
