@@ -25,14 +25,15 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    at every row length it takes, each semiring, with saturating,
    all-sentinel and single-product rows, then on the real padded slab of
    the largest kernel-covered category of the ER 27,000 x 32 product; the
-   coalesce
-   kernel for exact equality (int32, int64 and f32 streams, K = 1..4, empty
-   and full blocks, one block, L = 1..2^20, out_cap above and below the
-   total), then on the real survivor streams of the mixed chain's A^4 slab
-   and of the ER 27,000 x 32 slab.  Beside each kernel: its bound (the
-   larger of its compulsory bytes at 3.35 TB/s and its operations at the
-   H100 SXM data sheet's rate: fp32 at 67 TFLOP/s, SDD's 3xTF32 products
-   at 495 TFLOP/s with its fp32 bound beside) and, where PyTorch computes
+   coalesce kernel for exact equality (int32, int64 and f32 streams, K =
+   1..4, empty and full blocks, one block, L = 1..2^20, out_cap above and
+   below the total; blocks of 0-3 survivors, out_cap not a multiple of 4,
+   streams as views at odd element offsets), then on the real survivor
+   streams of the mixed chain's A^4 slab and of the ER 27,000 x 32 slab.
+   Beside each kernel: its bound (the larger of its compulsory bytes at
+   3.35 TB/s and its operations at the H100 SXM data sheet's rate: fp32 at
+   67 TFLOP/s, SDD's 3xTF32 products at 495 TFLOP/s with its fp32 bound
+   beside) and, where PyTorch computes
    the same function, that call's time (for coalesce, one masked_select a
    stream);
 4. the port's paths at full scale, each with every kernel count set to 0
@@ -227,7 +228,7 @@ def main() -> None:
         build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
         run_chain_foldband, run_chain_mixed, run_chain_rowcat, sparse_operand,
         unfold_band, verify_final_values)
-    from sparsetpu_torch.bench import sortmerge_phases, spgemm_bench
+    from sparsetpu_torch.bench import coalesce_sources, sortmerge_phases, spgemm_bench
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
     from sparsetpu_torch.kernels import (_build, bandplanes, blocksparse, coalesce,
@@ -675,44 +676,60 @@ def main() -> None:
           f"nb = 1, 3, 7, K = 1..{coalesce.MAX_STREAMS} of int32/int64/f32, empty and "
           f"full blocks, out_cap above and below the total", flush=True)
 
+    # the kernel's mapping (4 positions a thread, a block search a warp's
+    # 128): blocks of 0-3 survivors, so that several block boundaries fall
+    # inside one 4-position vector, out_cap not a multiple of 4 above and
+    # below the total, and the streams as contiguous views 1 and 3 elements
+    # into a buffer (loads at any alignment)
+    def odd_view(st, off):
+        buf = st.new_empty(st.numel() + off)
+        buf[off:] = st.reshape(-1)
+        return buf[off:].view(st.shape)
+
+    n_co = 0
+    for L in (3, 4, 5, 37):
+        sb = torch.randint(0, 4, (300,), generator=gen, device=dev)
+        offs = torch.cat([sb.new_zeros(1), torch.cumsum(sb, dim=0)]).int()
+        total = int(offs[-1])
+        for k in (1, coalesce.MAX_STREAMS):
+            streams = [rand_stream(300, L, co_types[(k + q) % 3]) for q in range(k)]
+            for off in (0, 1, 3):
+                views = [odd_view(st, off) for st in streams] if off else streams
+                for out_cap in (total + 1, total + 2, total + 7, total - 1, total - 6):
+                    co_case(f"blocks of 0-3, L={L} K={k} view offset {off} out_cap={out_cap}",
+                            offs, views, out_cap, [q - 1 for q in range(k)])
+                    n_co += 1
+    print(f"[3] coalesce_blocks == plain (exact) in {n_co} more cases: 300 blocks of 0-3 "
+          f"survivors (block boundaries inside a 4-position vector), L = 3, 4, 5, 37, K = 1 "
+          f"and {coalesce.MAX_STREAMS}, streams at element offsets 0, 1 and 3 of a buffer, "
+          f"out_cap = total + 1, + 2, + 7, - 1, - 6", flush=True)
+
     # ... and on the real survivor streams of the mixed chain's A^4 slab
     # (A^3 x A of the 30^3 torus) and of the ER 27,000 x 32 slab
     a30 = sparse_operand(h30, dev)
-    a30_3 = slab_ops.spgemm_slab(slab_ops.spgemm_slab(a30, a30).check(), a30).check()
     co_real = {}
-    for label, (x, y) in (("mixed chain A^4 slab (A^3 x A, 30^3)", (a30_3, a30)),
-                          ("ER 27,000 x 32 slab", (a_er, a_er))):
-        plan = slab_ops.slab_config(x, y)
-        offs, streams = slab_ops.survivor_streams(x, y, plan)
-        fills = [x.n_rows, INT32_SENTINEL] + [0] * (len(streams) - 2)
-        co_case(label, offs, streams, plan.out_cap, fills)
+    for label, (offs, streams, out_cap, fills) in coalesce_sources.real_inputs(
+            a30, a_er).items():
+        co_case(label, offs, streams, out_cap, fills)
         nb, L = streams[0].shape
         total = int(offs[-1])
-        kept = min(total, plan.out_cap)
-        # each survivor read once and written once in every stream with its
-        # 4-byte block id, the rest of out_cap written once, offs read once;
-        # the data is 4 B a stream (int32 row and column, uint32 limbs), the
-        # port's format carries each limb in an int64
-        def co_bytes(es):
-            return kept * (2 * es + 4) + (plan.out_cap - kept) * (es + 4) + offs.numel() * 4
-
-        nbytes = co_bytes(4 * len(streams))
-        format_bytes = co_bytes(sum(st.element_size() for st in streams))
+        # the data carries 4 B a stream (int32 row and column, uint32 limbs),
+        # the port's format each limb in an int64
+        nbytes, format_bytes = coalesce_sources.byte_counts(offs, streams, out_cap)
         b_ms, b_by = bound(nbytes)
         mask = torch.arange(L, device=dev)[None, :] < torch.diff(offs.long())[:, None]
         bids = torch.arange(nb, dtype=torch.int32, device=dev)[:, None].expand(nb, L)
         co_real[label] = dict(
-            ms=time_ms(lambda: coalesce.coalesce_blocks(offs, streams, plan.out_cap, fills),
-                       20),
+            ms=time_ms(lambda: coalesce.coalesce_blocks(offs, streams, out_cap, fills), 20),
             plain_ms=time_ms(lambda: coalesce.coalesce_blocks_reference(
-                offs, streams, plan.out_cap, fills), 5),
+                offs, streams, out_cap, fills), 5),
             bound_ms=b_ms, bound_by=b_by, format_bound_ms=bound(format_bytes)[0],
             # one masked_select a stream, the block ids included
             library_ms=time_ms(lambda: [torch.masked_select(st, mask)
                                         for st in (*streams, bids)], 5),
             timed_on=f"{label}: nb={nb} L={L}, K={len(streams)} streams "
                      f"({', '.join(str(st.dtype)[6:] for st in streams)}), {total} survivors, "
-                     f"out_cap {plan.out_cap}")
+                     f"out_cap {out_cap}")
         t = co_real[label]
         print(f"[3] coalesce_blocks on {t['timed_on']}: kernel == plain (exact); kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
@@ -723,7 +740,6 @@ def main() -> None:
     er_t = co_real.pop("ER 27,000 x 32 slab")
     (_, main_t), = co_real.items()
     timing["coalesce_blocks"] = dict(main_t, **{f"er_{key}": v for key, v in er_t.items()})
-    del a30_3
     torch.cuda.empty_cache()
 
     # ---- phase 4: the three chains at full scale

@@ -19,12 +19,13 @@ stream.
 Differences from the JAX package, and why:
 
 - ``offs`` holds nb + 1 offsets, the last being the total, where JAX's holds
-  nb and leaves the last block's length implicit: a CUDA block needs its own
-  survivor count ``offs[b + 1] - offs[b]``.
+  nb and leaves the last block's length implicit: the kernel needs every
+  block's end, the total among them, where the fill begins.
 - JAX copies every block's full L lanes and lets later blocks overwrite the
   earlier blocks' dead tails, which is right only because TPU grid steps run
-  one after another.  CUDA blocks run concurrently, so the kernel writes only
-  each block's survivor prefix, and nothing depends on an order of writes.
+  one after another.  CUDA blocks run concurrently, so the kernel walks the
+  output positions instead, each written once by one thread (a survivor or
+  a fill), and nothing depends on an order of writes.
 - Positions at or past the total (and before ``offs[0]``) are filled with a
   stated value per stream (``fills``, default 0) and block id -1; positions
   at or past ``out_cap`` are dropped.  Nothing is left uninitialised.
@@ -111,7 +112,8 @@ def coalesce_blocks(offs: torch.Tensor, streams: Sequence[torch.Tensor], out_cap
     precondition never make the kernel read or write out of bounds.
 
     On CUDA: one launch of the kernel on the current stream, without
-    synchronising.  On the CPU: the plain version."""
+    synchronising; the streams may be contiguous views at any element
+    offset.  On the CPU: the plain version."""
     global LAUNCHES
     fills = [0] * len(streams) if fills is None else list(fills)
     _check(offs, streams, out_cap, fills)
@@ -124,6 +126,9 @@ def coalesce_blocks(offs: torch.Tensor, streams: Sequence[torch.Tensor], out_cap
     block_id = torch.empty(out_cap, dtype=torch.int32, device=offs.device)
     if out_cap == 0:
         return (*outs, block_id)
+    # the kernel writes every output by 16-byte stores; the allocator aligns them
+    if any(o.data_ptr() % 16 for o in (*outs, block_id)):
+        raise RuntimeError("coalesce_blocks: an output is not 16-byte aligned")
     lib = _build.load()
     ptrs_in = [s.data_ptr() for s in streams] + [None] * (MAX_STREAMS - len(streams))
     ptrs_out = [o.data_ptr() for o in outs] + [None] * (MAX_STREAMS - len(streams))

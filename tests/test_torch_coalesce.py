@@ -42,6 +42,14 @@ CASES = {
     "K3-one-block": ([9], 32, ["int32", "uint32", "uint32"], 3),
     "K3-cap-below-total": ([12, 3, 8, 0, 16, 16, 1], 16, ["int32", "int32", "uint32"], -20),
     "float32-K2": ([1, 2, 3, 4], 8, ["float32", "int32"], 2),
+    # the kernel writes 4 positions a thread and searches a block per warp
+    # span of 128: several block boundaries inside one 4-position vector,
+    # L, the total and out_cap not multiples of 4
+    "K4-blocks-of-0-to-3": ([1, 0, 3, 2, 0, 0, 1, 3, 1, 2, 0, 3, 1, 1, 0, 2, 3], 3,
+                            ["int32", "int32", "uint32", "uint32"], 3),
+    "odd-L-total-and-cap": ([5, 4, 0, 5, 1], 5, ["float32"], 6),
+    "cap-below-total-inside-a-vector": ([5, 2, 7, 0, 6], 7, ["int32", "uint32"], -3),
+    "block-longer-than-a-tile": ([3, 1025, 0, 2, 130], 1030, ["uint32", "int32"], 7),
 }
 
 
@@ -89,6 +97,28 @@ def test_fills_past_the_total_and_before_the_first_offset():
     np.testing.assert_array_equal(empty[1].numpy(), [-1, -1, -1])
 
 
+def test_streams_may_be_views_at_any_offset():
+    sb, L, kinds, slack = CASES["K4-blocks-of-0-to-3"]
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(sb)]), dtype=torch.int32)
+    streams = [torch.from_numpy(s.astype(np.int64) if k == "uint32" else s)
+               for s, k in zip(_streams(len(sb), L, kinds, seed=5), kinds)]
+    out_cap = int(offs[-1]) + slack
+    want = pco.coalesce_blocks(offs, streams, out_cap, fills=[7] * len(kinds))
+    got = pco.coalesce_blocks(offs, [_odd_view(s) for s in streams], out_cap,
+                              fills=[7] * len(kinds))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _odd_view(s):
+    """A contiguous view of ``s``'s values one element into a larger buffer."""
+    buf = s.new_zeros(s.numel() + 1)
+    buf[1:] = s.reshape(-1)
+    view = buf[1:].view(s.shape)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    return view
+
+
 def test_checks_raise():
     s = torch.zeros((2, 4), dtype=torch.int32)
     offs = torch.tensor([0, 1, 2], dtype=torch.int32)
@@ -114,10 +144,11 @@ def test_cuda_coalesce_kernel_matches_plain_version():
                    for s, k in zip(_streams(len(sb), L, kinds, seed=3), kinds)]
         out_cap = int(offs[-1]) + slack
         want = pco.coalesce_blocks(offs, streams, out_cap, fills=[7] * len(kinds))
-        before = pco.LAUNCHES
-        got = pco.coalesce_blocks(offs.cuda(), [s.cuda() for s in streams], out_cap,
-                                  fills=[7] * len(kinds))
-        torch.cuda.synchronize()
-        assert pco.LAUNCHES == before + 1
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w)
+        # contiguous streams, and views one element into a buffer (unaligned)
+        for on_card in ([s.cuda() for s in streams], [_odd_view(s.cuda()) for s in streams]):
+            before = pco.LAUNCHES
+            got = pco.coalesce_blocks(offs.cuda(), on_card, out_cap, fills=[7] * len(kinds))
+            torch.cuda.synchronize()
+            assert pco.LAUNCHES == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
