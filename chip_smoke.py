@@ -29,7 +29,10 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    1..4, empty and full blocks, one block, L = 1..2^20, out_cap above and
    below the total; blocks of 0-3 survivors, out_cap not a multiple of 4,
    streams as views at odd element offsets), then on the real survivor
-   streams of the mixed chain's A^4 slab and of the ER 27,000 x 32 slab.
+   streams of the mixed chain's A^4 slab and of the ER 27,000 x 32 slab;
+   the dense-accumulator kernel also at the general-SpGEMM sweep's shape
+   (the ER 27,000 x 32 operand times its densified self, a 256-row slice
+   against the plain version and the full product's rows against it).
    Beside each kernel: its bound (the larger of its compulsory bytes at
    3.35 TB/s and its operations at the H100 SXM data sheet's rate: fp32 at
    67 TFLOP/s, SDD's 3xTF32 products at 495 TFLOP/s with its fp32 bound
@@ -60,7 +63,19 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    launch per slab step and one dense-acc launch per late step); then
    spgemm_slab on ER 27,000 x 32 and power-law 27,000 and spgemm_colchunk
    (slot budget 2^24, K = 3 chunks) on ER 27,000 x 32, each equal to the
-   oracle's whole CSR, with at least one coalesce launch each;
+   oracle's whole CSR, with at least one coalesce launch each; then the
+   chain's other forms on the 30^3 torus at --steps 7 (bench.py --algo esc,
+   escb, dense and band): every step's (nnz, max) against the published
+   table, the esc and escb chains' whole CSR at every step against the
+   oracle's products (computed once and shared), the dense and band chains'
+   final values on 128 rows.  The sweep runs JAX's eight algorithms (esc,
+   escb, rowcat, rowcat_pallas, denseacc, densedense, densedense_tiled,
+   bcoo), every product equal to the oracle's whole CSR, the only DNF rows
+   JAX's own rule's (densedense at n = 27,000), at least one dense-acc
+   launch per graph (the denseacc row); spgemm_auto runs on every sweep
+   graph (its route printed, its product against the oracle), and once
+   forced to denseacc_tiled on ER 27,000 x 32 (4 panels of 8,192, two
+   launches a panel).
    Each path runs under torch.profiler, and every kernel's device time is
    summed over it, warm-ups and repetitions included; one pass of each
    path (one untimed call of each step: a chain's steps once, one product a
@@ -92,7 +107,11 @@ DIMS30 = (30, 30, 30)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores, data sheet
 TF32_FLOPS_PER_S = 495e12  # TF32 on the tensor cores, dense, data sheet
-SPGEMM_ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas")
+SPGEMM_ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas", "denseacc", "densedense",
+                "densedense_tiled", "bcoo")
+# the only DNF rows JAX's own rule gives: densedense_fits(n, n, n) fails at 27k
+DNF_ALLOWED = {(case, 27000, epn, "densedense")
+               for case, epn in (("er", 2), ("er", 8), ("er", 32), ("powerlaw", 8))}
 # (case, n, edges per node) -> nnz(C) of the published sweep
 # (reports/spgemm_sweep_full.csv): BASELINE configs 3-4, the whole grid
 SPGEMM_CASES = {
@@ -225,15 +244,18 @@ def main() -> None:
     from sparsetpu_torch.attention.scores import random_sparse_tensor
     from sparsetpu_torch.bench import tipover
     from sparsetpu_torch.bench.chain import (
-        build_torus_host, fold, native_chain_stats_host, run_chain_dense_acc,
+        BAND_BLOCKS, build_torus_host, fold, native_chain_stats_host, run_chain,
+        run_chain_band, run_chain_dense, run_chain_dense_acc, run_chain_escb,
         run_chain_foldband, run_chain_mixed, run_chain_rowcat, sparse_operand,
-        unfold_band, verify_final_values)
+        tuple_to_f32_dense, unfold_band, verify_final_values)
     from sparsetpu_torch.bench import coalesce_sources, sortmerge_phases, spgemm_bench
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
-    from sparsetpu_torch.kernels import (_build, bandplanes, blocksparse, coalesce,
+    from sparsetpu_torch.kernels import (_build, bandmm, bandplanes, blocksparse, coalesce,
                                          groupdot, sortmerge, spmm)
-    from sparsetpu_torch.ops import colchunk, slab as slab_ops
+    from sparsetpu_torch.ops import colchunk, denseacc, slab as slab_ops
+    from sparsetpu_torch.ops.spgemm import (auto_route, dense_acc_panel_cols, spgemm_auto,
+                                            symbolic_flops_exact)
     from sparsetpu_torch.ops.hybrid import choose_strategy
     from sparsetpu_torch.ops.segments import INT32_SENTINEL
 
@@ -638,6 +660,45 @@ def main() -> None:
           f"{format_bytes / 1e9:.3f} GB take {t['format_bound_ms']:.4f} ms), library none",
           flush=True)
     del slab
+
+    # dense-acc at the general-SpGEMM sweep's shape: the ER 27,000 x 32
+    # operand (plan_dense_acc) times its densified self, as dense_acc_numeric
+    # runs it, rows 0..SLICE_ROWS against the plain version
+    op = denseacc.plan_dense_acc(a_er)
+    op_slice = spmm.row_slice(op, 0, SLICE_ROWS)
+    p = tuple_to_f32_dense(a_er)
+    full = spmm.spmm_dense_acc(op, p)
+    sliced = spmm.spmm_dense_acc(op_slice, p)
+    want = spmm.spmm_dense_acc_reference(op_slice, p)
+    err["spmm_dense_acc"] = max(err["spmm_dense_acc"],
+                                compare("spmm_dense_acc ER 27000x32 rows", full[:SLICE_ROWS],
+                                        want),
+                                compare("spmm_dense_acc ER 27000x32 slice", sliced, want))
+    lib_slice = torch.sparse_csr_tensor(op_slice.row_ptr, op_slice.col_idx, op_slice.vals,
+                                        size=(SLICE_ROWS, er_n))
+    lib_full = torch.sparse_csr_tensor(op.row_ptr, op.col_idx, op.vals, size=(er_n, er_n))
+
+    def er_bound(o, n_rows):
+        return bound(csr_spmm_bytes(o.row_ptr, o.col_idx, n_rows, er_n, er_n,
+                                    o.vals.numel() * 4), 2.0 * o.col_idx.numel() * er_n)
+
+    b_ms, b_by = er_bound(op_slice, SLICE_ROWS)
+    er_t = dict(ms=time_ms(lambda: spmm.spmm_dense_acc(op_slice, p, out=sliced), 20),
+                plain_ms=time_ms(lambda: spmm.spmm_dense_acc_reference(op_slice, p), 3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 10),
+                full_step_ms=time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 3),
+                full_bound_ms=er_bound(op, er_n)[0],
+                full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 3),
+                timed_on=f"ER 27,000 x 32 operand ({op.col_idx.numel()} entries) rows "
+                         f"0..{SLICE_ROWS} x its dense self ({er_n}, {er_n})")
+    timing["spmm_dense_acc"].update({f"er_{k}": v for k, v in er_t.items()})
+    print(f"[3] spmm_dense_acc on {er_t['timed_on']}: kernel == plain (exact); slice: kernel "
+          f"{er_t['ms']:.4f} ms, plain {er_t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), library {er_t['library_ms']:.4f} ms; full operand kernel "
+          f"{er_t['full_step_ms']:.4f} ms, bound {er_t['full_bound_ms']:.4f} ms, library "
+          f"{er_t['full_library_ms']:.4f} ms", flush=True)
+    del op, op_slice, p, full, sliced, want, lib_slice, lib_full
     torch.cuda.empty_cache()
 
     # coalesce: every stream type, K = 1..4, empty and full blocks, one
@@ -742,10 +803,11 @@ def main() -> None:
     timing["coalesce_blocks"] = dict(main_t, **{f"er_{key}": v for key, v in er_t.items()})
     torch.cuda.empty_cache()
 
-    # ---- phase 4: the three chains at full scale
+    # ---- phase 4: the port's paths at full scale
     t0 = time.perf_counter()
+    oracle30 = []  # the oracle's A^2..A^7, shared by the CSR chains' checks
     stats, final = native_chain_stats_host(h30.row_ptr, h30.col_idx, h30.vals,
-                                           n30, STEPS)
+                                           n30, STEPS, keep=oracle30)
     print(f"[4] oracle chain A^2..A^{STEPS}: {time.perf_counter() - t0:.1f}s", flush=True)
     check([tuple(s[:3]) for s in stats] == EXPECTED,
           f"oracle stats {[s[:3] for s in stats]} != published {EXPECTED}")
@@ -811,7 +873,8 @@ def main() -> None:
     reset_counts()
     (rc_results, _), path_ms["rowcat"] = profiled(
         lambda: run_chain_rowcat(h30, dev, max_step=steps_esc, iters=3,
-                                 native_stats=stats[:steps_esc - 1], verbose=False), counters)
+                                 native_stats=stats[:steps_esc - 1], verbose=False,
+                                 oracle=oracle30), counters)
     counts = {name: mod.LAUNCHES for name, mod in counters.items()}
     got = [(r.step, r.nnz, int(r.max_value)) for r in rc_results]
     check(got == EXPECTED[:steps_esc - 1], f"rowcat chain (step, nnz, max) {got}")
@@ -853,8 +916,9 @@ def main() -> None:
               f"scores (rtol 1e-4, atol 1e-5); launches {counts}", flush=True)
     launches["sdd_block_scores"] = sdd_launches
 
-    # the general-SpGEMM sweep, one graph at a time
-    sweep, sm_launches = {}, 0
+    # the general-SpGEMM sweep, one graph at a time, JAX's eight algorithms;
+    # then spgemm_auto on the same graph
+    sweep, sm_launches, da_launches, auto = {}, 0, 0, {}
     path_ms["spgemm sweep"] = dict.fromkeys(counters, 0.0)
     for (case, n, epn), nnz_c in SPGEMM_CASES.items():
         (*_, coo), = spgemm_bench.make_cases(
@@ -862,7 +926,6 @@ def main() -> None:
             power_law_sides=(n,) if case == "powerlaw" else ())
         a_x = spgemm_bench.case_operand(coo, dev)
         one_pass("sortmerge_rows", spgemm_bench.algo_call(a_x, "rowcat_pallas"))
-        del a_x
         reset_counts()
         csv, ms = profiled(lambda: spgemm_bench.run(
             sides=(n,) if case == "er" else (), e_per_n=(epn,),
@@ -871,18 +934,72 @@ def main() -> None:
         path_ms["spgemm sweep"] = {k: v + ms[k] for k, v in path_ms["spgemm sweep"].items()}
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
         rows = [line.split(",") for line in csv.strip().split("\n")[1:]]
-        check([r[6] for r in rows] == list(SPGEMM_ALGOS) and
-              not any(r[7].startswith("DNF") for r in rows),
+        dnf = {(case, n, epn, r[6]) for r in rows if r[7].startswith("DNF")}
+        check([r[6] for r in rows] == list(SPGEMM_ALGOS) and dnf <= DNF_ALLOWED,
               f"spgemm sweep {case} {n}x{epn}: rows {rows}")
+        check({k for k in DNF_ALLOWED if k[:3] == (case, n, epn)} <= dnf,
+              f"spgemm sweep {case} {n}x{epn}: densedense ran where JAX's rule gives DNF")
         check(int(rows[0][5]) == nnz_c,
               f"spgemm sweep {case} {n}x{epn}: nnz(C) {rows[0][5]} != {nnz_c}")
         check(counts["sortmerge_rows"] >= 1,
               f"spgemm sweep {case} {n}x{epn} made no sortmerge_rows launch")
+        check(counts["spmm_dense_acc"] >= 1,
+              f"spgemm sweep {case} {n}x{epn} made no spmm_dense_acc launch (denseacc row)")
         sm_launches += counts["sortmerge_rows"]
-        sweep[f"{case},{n},{epn}"] = {r[6]: float(r[7]) for r in rows}
+        da_launches += counts["spmm_dense_acc"]
+        key = f"{case},{n},{epn}"
+        sweep[key] = {r[6]: float(r[7]) if not r[7].startswith("DNF") else r[7] for r in rows}
         print(f"[4] spgemm sweep {case} {n}x{epn}: flops {rows[0][4]}, nnz(C) "
-              f"{nnz_c} (published); every algorithm == oracle CSR; launches {counts}",
-              flush=True)
+              f"{nnz_c} (published); every algorithm == oracle CSR"
+              f"{', densedense DNF (JAX rule)' if dnf else ''}; launches {counts}", flush=True)
+
+        # spgemm_auto on the same A^2: its route (dense-dense tiers tried
+        # first, then the route) and its product against the oracle
+        host = native.as_host_csr(*a_x.to_numpy())
+        want = native.spgemm(host, host, n)
+        flops = symbolic_flops_exact(a_x, a_x)
+        tiers, route = auto_route(a_x, a_x, flops)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = spgemm_auto(a_x, a_x)
+        torch.cuda.synchronize()
+        t_auto = (time.perf_counter() - t0) * 1e3
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        spgemm_bench.check_against_oracle(c, want, f"spgemm_auto {key}")
+        del c
+        auto[key] = dict(densedense_tiers=["wide" if w else "f32" for w in tiers],
+                         route=route, call_ms=t_auto,
+                         spmm_dense_acc_launches=counts["spmm_dense_acc"])
+        print(f"[4] spgemm_auto {case} {n}x{epn}: dense-dense tiers tried first "
+              f"{auto[key]['densedense_tiers']} (the first that does not poison answers), "
+              f"else route {route}; == oracle's whole CSR; one call {t_auto:.4f} ms (the "
+              f"first, host plan included); launches {counts}", flush=True)
+        if key == "er,27000,32":
+            # the panel sweep at full width: dense_acc_panel_cols(27000)
+            # panels, each run by the dense-accumulator kernel in both sweeps
+            w = dense_acc_panel_cols(n)
+            n_panels = -(-n // w)
+            check((w, n_panels) == (8192, 4), f"denseacc_tiled panels {w} x {n_panels}")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = spgemm_auto(a_x, a_x, kernel="denseacc_tiled")
+            torch.cuda.synchronize()
+            t_tiled = (time.perf_counter() - t0) * 1e3
+            n_launch = counters["spmm_dense_acc"].LAUNCHES
+            spgemm_bench.check_against_oracle(c, want, f"spgemm_auto denseacc_tiled {key}")
+            check(n_launch == 2 * n_panels,
+                  f"denseacc_tiled made {n_launch} spmm_dense_acc launches, not {2 * n_panels}")
+            auto["denseacc_tiled er,27000,32"] = dict(panels=n_panels, panel_cols=w,
+                                                      call_ms=t_tiled,
+                                                      spmm_dense_acc_launches=n_launch)
+            print(f"[4] spgemm_auto(kernel='denseacc_tiled') ER 27000x32: {n_panels} panels of "
+                  f"{w}; == oracle's whole CSR; one call {t_tiled:.4f} ms; spmm_dense_acc "
+                  f"launches {n_launch}", flush=True)
+            del c
+        del a_x, host, want
+        torch.cuda.empty_cache()
     launches["sortmerge_rows"] = sm_launches
 
     # the mixed chain: slab ESC A^2..A^4, densify, dense-acc A^5..A^7
@@ -961,6 +1078,47 @@ def main() -> None:
         torch.cuda.empty_cache()
     del a_er
 
+    # the chain's other forms (bench.py --algo esc, escb, dense, band) on the
+    # 30^3 torus: every step against the published table; esc and escb
+    # against the oracle's whole CSR at every step (the products computed
+    # once, above), dense and band on the final values of 128 rows
+    other_chains = {}
+    half_width = bandmm.cyclic_bandwidth(h30)
+    check(half_width == 1799, f"30^3 cyclic bandwidth {half_width}, not 1,799")
+    for algo, run in (
+            ("esc", lambda: run_chain(h30, dev, max_step=STEPS, iters=3, native_stats=stats,
+                                      verbose=False, oracle=oracle30)),
+            ("escb", lambda: run_chain_escb(h30, dev, max_step=STEPS, iters=3,
+                                            native_stats=stats, verbose=False,
+                                            oracle=oracle30)),
+            ("dense", lambda: run_chain_dense(h30, dev, max_step=STEPS, iters=3,
+                                              native_stats=stats, verbose=False)),
+            ("band", lambda: run_chain_band(h30, dev, half_width, block=BAND_BLOCKS[n30],
+                                            max_step=STEPS, iters=3, native_stats=stats,
+                                            verbose=False))):
+        reset_counts()
+        t0 = time.perf_counter()
+        steps, out = run()
+        t_path = time.perf_counter() - t0
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        got = [(r.step, r.nnz, int(r.max_value)) for r in steps]
+        check(got == EXPECTED, f"{algo} chain (step, nnz, max) {got} != {EXPECTED}")
+        csr_chain = algo in ("esc", "escb")
+        if not csr_chain:
+            verify_final_values(out if algo == "dense" else bandmm.band_to_dense(out), final,
+                                sample_rows=128)
+        del out
+        torch.cuda.empty_cache()
+        other_chains[algo] = {str(r.step): r.seconds * 1e3 for r in steps}
+        checked = ("the whole CSR == oracle at every step" if csr_chain
+                   else "final values == oracle on 128 leading rows")
+        timed = "whole calls, host plan included" if csr_chain else "CUDA events"
+        print(f"[4] --algo {algo}: per-step (nnz, max) == oracle == published table; "
+              f"{checked}; steps "
+              f"{', '.join(f'A^{k} {v:.4f} ms' for k, v in other_chains[algo].items())}; "
+              f"total {sum(other_chains[algo].values()):.4f} ms ({timed}); path "
+              f"{t_path:.1f} s; launches {counts}", flush=True)
+
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -1003,7 +1161,9 @@ def main() -> None:
         str(d): {"dense": float(ref.split("ref_time=")[1].split(" ")[0]),
                  **{impl: float(r[8]) for impl, r in rows.items()}}
         for d, (ref, rows) in att_rows.items()}}), flush=True)
-    print(json.dumps({"spgemm_sweep_s": sweep}), flush=True)
+    print(json.dumps({"spgemm_sweep_s": sweep,
+                      "sweep_spmm_dense_acc_launches": da_launches}), flush=True)
+    print(json.dumps({"spgemm_auto": auto, "chains_steps_ms": other_chains}), flush=True)
     print(json.dumps({"mixed_chain_ms": mixed_ms, "mixed_steps_ms": {
         str(r.step): r.seconds * 1e3 for r in results}, "mixed_densify_ms": t_dens * 1e3,
         "slab_paths": slab_paths}), flush=True)

@@ -19,5 +19,30 @@ group-dot``).  Slice 3 adds the exact-semiring foundation (``semiring``, the
 device ``csr.SparseCSR``, ``ops.segments``, the ESC ``ops.spgemm``) and the
 attention-scores path on it: dense, element-sparse (ESC) and block-sparse
 (``kernels.blocksparse``, the SDD kernel) scores, swept by
-``python -m sparsetpu_torch.bench.tipover``.
+``python -m sparsetpu_torch.bench.tipover``.  Slices 4-5 add the general
+SpGEMM routes (``ops.escb``, ``ops.rowcat`` with the sort-merge kernel,
+``ops.slab`` and ``ops.colchunk`` with the coalesce kernel) and the sweep
+``python -m sparsetpu_torch.bench.spgemm_bench``.  Slice 6 adds the dense
+routes (``ops.denseacc``, ``ops.spmm``), the block-band product
+(``kernels.bandmm``, ``ops.hybrid``), ``ops.elementwise``, the
+``torch.sparse`` comparator (``utils.bcoo``) and the public router
+``spgemm_auto``, so the chain takes every ``bench.py --algo`` and the sweep
+all eight of JAX's algorithms.
+
+The JAX package's doctest, on the CPU (the entry points default to the
+card)::
+
+    >>> from sparsetpu_torch import SparseCSR, U64, spgemm_auto
+    >>> a = SparseCSR.from_coo_host([0, 0, 1], [1, 2, 2], [1, 2, 3], 3, sr=U64,
+    ...                             device="cpu")
+    >>> c = spgemm_auto(a, a)          # A^2 on the saturating u64 semiring
+    >>> int(c.nnz), int(c.to_dense_numpy()[0, 2])
+    (1, 3)
 """
+
+from .csr import SparseCSR
+from .ops.spgemm import spadd, spgemm, spgemm_auto, symbolic_flops
+from .semiring import F32SR, U32, U64, Semiring, by_name
+
+__all__ = ["F32SR", "U32", "U64", "Semiring", "by_name", "SparseCSR", "spadd", "spgemm",
+           "spgemm_auto", "symbolic_flops"]

@@ -1,33 +1,40 @@
 """The A^2..A^7 chain benchmark on the port: counterpart of ``sparsetpu/bench/chain.py``.
 
 The headline workload: the 30^3 Moore torus thinned to ~3 edges per node
-(n = 27,000, nnz(A) = 80,882) on the u64 semiring, carried in f32, and the
-chain C_k = A x C_{k-1} for k = 2..7.  Three forms, as in ``bench.py``:
+(n = 27,000, nnz(A) = 80,882) on the u64 semiring, and the chain
+C_k = A x C_{k-1} (or C_(k-1) x A) for k = 2..7, in ``bench.py``'s nine
+``--algo`` forms:
 
-- the router's route, "dense-acc": full-width steps through the
-  dense-accumulator SpMM (kernels/spmm.py), or through the group-dot SpMM
-  (kernels/groupdot.py) with ``--kernel group-dot``;
-- ``--algo foldband``: the torus folded into a pure band and every step
-  through the band SpMM (kernels/bandplanes.py), on windows of the band's
-  width only;
-- ``--algo mixed``: the sparse early steps through the slab ESC SpGEMM
+- ``auto``: the router's route (``ops/hybrid.choose_strategy``):
+  "dense-acc" runs ``pallas``, "band" runs ``band``, "esc" runs ``rowcat``,
+  as ``bench.py`` maps them;
+- ``pallas``: full-width steps through the dense-accumulator SpMM
+  (kernels/spmm.py), or through the group-dot SpMM (kernels/groupdot.py)
+  with ``--kernel group-dot``;
+- ``dense``: the same product through the plain-torch gather/segment-sum
+  SpMM (ops/spmm.py), in row chunks;
+- ``band``: the block-band product (kernels/bandmm.py) on the cyclic band,
+  folded once it is wider than the matrix;
+- ``esc``, ``escb``, ``rowcat``: C_k = C_(k-1) x A in CSR through the ESC
+  (ops/spgemm.py), blocked ESC (ops/escb.py) and row-categorized
+  (ops/rowcat.py, with the sort-merge kernel) SpGEMMs;
+- ``mixed``: the sparse early steps through the slab ESC SpGEMM
   (ops/slab.py, with the coalesce kernel), then A^(switch-1) densified and
   the late steps through the dense-accumulator SpMM;
-- ``--algo rowcat``, and the router's "esc" route (a graph whose product
-  stays sparse, as the 30^3 torus at --steps 2..5): C_k = C_(k-1) x A in
-  CSR through the row-categorized SpGEMM (ops/rowcat.py, with the
-  sort-merge kernel), as ``bench.py`` maps "esc" to ``run_chain_rowcat``.
+- ``foldband``: the torus folded into a pure band and every step through
+  the band SpMM (kernels/bandplanes.py), on windows of the band's width.
 
-Every step's nnz and max are checked against the C++ oracle, and the final
-product's values on its leading rows (for fold-band, after unfolding); the
-mixed chain's slab steps and every rowcat step against the oracle's whole
-CSR.  The router's "band" route needs the block-band product
-(``sparsetpu/kernels/bandmm.py``), which the port does not have: it raises.
+Every step's nnz and max are checked against the C++ oracle; the CSR
+chains' (esc, escb, rowcat, the mixed chain's slab steps) whole CSR at every
+step, and the final product's values on its leading rows for the dense
+forms (pallas, dense, band, foldband after unfolding, mixed).  The JAX
+driver checks neither for dense or band; the port checks every form.
 
 Run: ``python -m sparsetpu_torch.bench.chain [--quick] [--steps 7] [--iters 3]
-[--algo auto|foldband|mixed|rowcat] [--switch-step 5]
-[--kernel dense-acc|group-dot] [--csv PATH] [--no-verify] [--device cuda]``.  It prints one line per step
-and then one JSON line with the A^7 output rate, as ``bench.py`` does.
+[--algo auto|pallas|dense|band|esc|rowcat|escb|mixed|foldband]
+[--switch-step 5] [--kernel dense-acc|group-dot] [--csv PATH] [--no-verify]
+[--device cuda]``.  It prints one line per step and then one JSON line with
+the A^7 output rate, as ``bench.py`` does.
 """
 
 from __future__ import annotations
@@ -48,20 +55,19 @@ import torch
 from .. import native
 from ..csr import F32_EXACT_LIMIT, HostCSR, SparseCSR
 from ..graphs import generate
-from ..kernels import bandplanes, groupdot, spmm
-from ..ops import rowcat, slab
+from ..kernels import bandmm, bandplanes, groupdot, spmm
+from ..ops import escb, rowcat, slab
+from ..ops import spmm as ops_spmm
 from ..ops.hybrid import choose_strategy
-from ..ops.spgemm import max_value, symbolic_flops_exact
+from ..ops.spgemm import max_value, pow2, spgemm, symbolic_flops_exact
 from ..semiring import by_name
 from .spgemm_bench import check_against_oracle
 
 BASELINE_NNZ_PER_S = 289e6  # reference CPU CSR-par at A^7 (BASELINE.md)
 KERNELS = ("dense-acc", "group-dot")  # bench.py --pallas-kernel vpu, mxu
-
-# the route of choose_strategy the port does not have yet
-BAND_NOT_PORTED = ("the 'band' route needs the block-band product "
-                   "(sparsetpu/kernels/bandmm.py) and hybrid_matmul "
-                   "(sparsetpu/ops/hybrid.py), which the port does not have yet")
+ALGOS = ("auto", "pallas", "dense", "band", "esc", "rowcat", "escb", "mixed", "foldband")
+ROUTE_ALGO = {"dense-acc": "pallas", "band": "band", "esc": "rowcat"}  # bench.py's map
+BAND_BLOCKS = {1728: 108, 27000: 125}  # bench.py's block of the band chain, by n
 
 
 @dataclass
@@ -92,9 +98,11 @@ def build_torus_host(dims: Sequence[int] = (30, 30, 30),
     return HostCSR.from_coo(rows, cols, vals, n, n, sr_name)
 
 
-def native_chain_stats_host(row_ptr, col_idx, vals, n: int, max_step: int = 7):
+def native_chain_stats_host(row_ptr, col_idx, vals, n: int, max_step: int = 7,
+                            keep: Optional[list] = None):
     """A^2..A^max on the C++ oracle (exact saturating u64).  Returns per-step
-    (step, nnz, max_value, expansion_flops) and the final (row_ptr, col, val)."""
+    (step, nnz, max_value, expansion_flops) and the final (row_ptr, col, val);
+    ``keep`` (a list), if given, receives every step's product in order."""
     base = native.as_host_csr(row_ptr, col_idx, vals)
     rnz_a = np.diff(base[0])
     stats = []
@@ -104,6 +112,8 @@ def native_chain_stats_host(row_ptr, col_idx, vals, n: int, max_step: int = 7):
         # current power expands to row_nnz_A[k] partial products
         flops = int(rnz_a[prev[1].astype(np.int64)].sum())
         prev = native.spgemm(prev, base, n)
+        if keep is not None:
+            keep.append(prev)
         crp, cc, cv = prev
         stats.append((step, int(crp[-1]), int(cv.max()) if len(cv) else 0, flops))
     return stats, prev
@@ -121,10 +131,11 @@ def _check_chain_args(max_step: int, iters: int, native_stats: Optional[list]) -
 
 @dataclass
 class _Step:
-    """One product of a chain: ``launch(p, out)`` writes C = A x P into out."""
+    """One product of a chain: ``launch(p, out)`` returns C = A x P, written
+    into ``out`` where the launch takes a buffer (None where it allocates)."""
 
-    launch: Callable[[torch.Tensor, torch.Tensor], object]
-    out: torch.Tensor
+    launch: Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+    out: Optional[torch.Tensor]
     bytes: int  # the step's byte model
     label: str
 
@@ -138,7 +149,7 @@ def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
     every step's nnz and max are read back and checked against
     ``native_stats`` (the records of steps ``first_step``, ``first_step`` +
     1, ...) when given; the first disagreement raises.  Returns the per-step
-    records and the final product (the last step's ``out``)."""
+    records and the final product (the last step's result)."""
     device = p0.device
     on_gpu = device.type == "cuda"
     k = len(steps)
@@ -155,18 +166,18 @@ def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
-                st.launch(p, st.out)
+                out = st.launch(p, st.out)
                 stop.record()
                 events.append((idx, start, stop))
             else:
                 t0 = time.perf_counter()
-                st.launch(p, st.out)
+                out = st.launch(p, st.out)
                 best[idx] = min(best[idx], time.perf_counter() - t0)
             if it == 0:
                 flops = int((col_count_a * row_nnz).sum())
-                row_nnz = torch.count_nonzero(st.out, dim=1)
+                row_nnz = torch.count_nonzero(out, dim=1)
                 nnz = int(row_nnz.sum())
-                vmax = float(st.out.max())
+                vmax = float(out.max())
                 step = idx + first_step
                 if vmax >= F32_EXACT_LIMIT - 8:
                     raise OverflowError(f"A^{step} reached the f32 exact range ({vmax})")
@@ -177,7 +188,7 @@ def _time_chain(steps: List[_Step], p0: torch.Tensor, a_op: spmm.SparseOperand,
                             f"A^{step}: (nnz, max) = ({nnz}, {vmax:.0f}) but the "
                             f"oracle has ({want_nnz}, {want_max})")
                 checked.append((nnz, vmax, flops))
-            p = st.out
+            p = out
     if on_gpu:
         # one synchronise after every repetition is queued: a sync between
         # repetitions would leave the device idle while the host launches
@@ -369,26 +380,19 @@ def run_chain_mixed(
     return results + late, p, t_dens
 
 
-def run_chain_rowcat(
-    a: HostCSR,
-    device,
-    max_step: int = 7,
-    iters: int = 3,
-    native_stats: Optional[list] = None,
-    verbose: bool = True,
-) -> Tuple[List[ChainStep], SparseCSR]:
-    """The row-categorized chain (the counterpart of ``run_chain_rowcat`` in
-    the JAX package, the route ``bench.py`` takes for the router's "esc"):
-    C_k = C_(k-1) x A for k = 2..max_step through ``rowcat.spgemm_rowcat``,
-    the product staying a CSR; on CUDA its slab categories ride the
-    sort-merge kernel.
-
-    Each step's time is the least of ``iters`` whole calls, host plan
-    included, by the host clock around a call that ends in a synchronise,
-    as the JAX package times it.  With ``native_stats`` every step's nnz
-    and max are checked against the oracle's and its whole CSR against the
-    oracle's product, outside the timed calls; the first disagreement
-    raises.  Returns the per-step records and the final product A^max."""
+def _run_csr_chain(a: HostCSR, device, product: Callable[[SparseCSR, SparseCSR], SparseCSR],
+                   label: str, max_step: int, iters: int, native_stats: Optional[list],
+                   verbose: bool, oracle: Optional[list] = None
+                   ) -> Tuple[List[ChainStep], SparseCSR]:
+    """C_k = C_(k-1) x A for k = 2..max_step, the product staying a CSR:
+    ``product(cur, a)`` is one whole SpGEMM call, host plan included.  Each
+    step's time is the least of ``iters`` calls by the host clock around a
+    call that ends in a synchronise, as the JAX package times its CSR
+    chains.  With ``native_stats`` every step's nnz and max are checked
+    against the oracle's and its whole CSR against the oracle's product
+    (``oracle``: the products A^2.. as ``native_chain_stats_host(keep=)``
+    gives them, computed here when None), outside the timed calls; the
+    first disagreement raises."""
     device = torch.device(device)
     _check_chain_args(max_step, iters, native_stats)
     a_sp = sparse_operand(a, device)
@@ -398,11 +402,11 @@ def run_chain_rowcat(
     cur = a_sp
     for step in range(2, max_step + 1):
         flops = symbolic_flops_exact(cur, a_sp)
-        c = rowcat.spgemm_rowcat(cur, a_sp).check()
+        c = product(cur, a_sp).check()
         best = math.inf
         for _ in range(iters):
             t0 = time.perf_counter()
-            rowcat.spgemm_rowcat(cur, a_sp)
+            product(cur, a_sp)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             best = min(best, time.perf_counter() - t0)
@@ -413,17 +417,122 @@ def run_chain_rowcat(
             if (nnz, vmax) != (want_nnz, want_max):
                 raise RuntimeError(f"A^{step}: (nnz, max) = ({nnz}, {vmax}) but the oracle "
                                    f"has ({want_nnz}, {want_max})")
-            prev = native.spgemm(prev, base, a.n_rows)
+            prev = oracle[step - 2] if oracle else native.spgemm(prev, base, a.n_rows)
             check_against_oracle(c, prev, f"A^{step}")
         rec = ChainStep(step=step, nnz=nnz, flops=flops, seconds=best, nnz_per_s=nnz / best,
                         gflops=2.0 * flops / best / 1e9, max_value=float(vmax))
         results.append(rec)
         if verbose:
-            print(f"A^{step} [rowcat {device.type}]: nnz={nnz} flops={flops} "
+            print(f"A^{step} [{label} {device.type}]: nnz={nnz} flops={flops} "
                   f"time={best * 1e3:.4f}ms nnz/s={rec.nnz_per_s / 1e6:.1f}M "
                   f"gflops={rec.gflops:.2f} max={vmax}", flush=True)
         cur = c
     return results, cur
+
+
+def run_chain_rowcat(a: HostCSR, device, max_step: int = 7, iters: int = 3,
+                     native_stats: Optional[list] = None, verbose: bool = True,
+                     oracle: Optional[list] = None) -> Tuple[List[ChainStep], SparseCSR]:
+    """The row-categorized chain (``run_chain_rowcat`` in the JAX package,
+    the route ``bench.py`` takes for the router's "esc"): every step through
+    ``rowcat.spgemm_rowcat``, whose slab categories ride the sort-merge
+    kernel on CUDA; timing and checks as ``_run_csr_chain``.  Returns the
+    per-step records and the final product A^max."""
+    return _run_csr_chain(a, device, rowcat.spgemm_rowcat, "rowcat", max_step, iters,
+                          native_stats, verbose, oracle)
+
+
+def _esc_product(cur: SparseCSR, a: SparseCSR) -> SparseCSR:
+    """One ESC call with its host half: the exact flop count and the
+    power-of-two expansion capacity (``run_chain`` in the JAX package)."""
+    return spgemm(cur, a, pow2(symbolic_flops_exact(cur, a)))
+
+
+def run_chain(a: HostCSR, device, max_step: int = 7, iters: int = 3,
+              native_stats: Optional[list] = None, verbose: bool = True,
+              oracle: Optional[list] = None) -> Tuple[List[ChainStep], SparseCSR]:
+    """The ESC chain (``run_chain`` in the JAX package, ``bench.py --algo
+    esc``): every step through ``ops.spgemm.spgemm`` at the power-of-two
+    capacity of its exact flop count; timing and checks as
+    ``_run_csr_chain``."""
+    return _run_csr_chain(a, device, _esc_product, "esc", max_step, iters, native_stats,
+                          verbose, oracle)
+
+
+def run_chain_escb(a: HostCSR, device, max_step: int = 7, iters: int = 3,
+                   native_stats: Optional[list] = None, verbose: bool = True,
+                   oracle: Optional[list] = None) -> Tuple[List[ChainStep], SparseCSR]:
+    """The blocked-ESC chain (``run_chain_escb`` in the JAX package): every
+    step through ``escb.spgemm_blocked``, its row packing included; timing
+    and checks as ``_run_csr_chain``."""
+    return _run_csr_chain(a, device, escb.spgemm_blocked, "escb", max_step, iters,
+                          native_stats, verbose, oracle)
+
+
+def run_chain_dense(a: HostCSR, device, max_step: int = 7, iters: int = 3,
+                    n_chunks: int = 8, native_stats: Optional[list] = None,
+                    verbose: bool = True) -> Tuple[List[ChainStep], torch.Tensor]:
+    """The plain-torch dense chain (``run_chain_dense`` in the JAX package,
+    ``bench.py --algo dense``): C_k = A x C_(k-1) with C dense f32, every
+    step the gather/segment-sum SpMM of ``ops/spmm.py`` over ``n_chunks``
+    row chunks of A.  Timing (CUDA events) and checks as ``_time_chain``.
+    Returns the per-step records and the final dense product."""
+    device = torch.device(device)
+    _check_chain_args(max_step, iters, native_stats)
+    a_sp = sparse_operand(a, device)
+    cols, vals, lrow, rpc = ops_spmm.prepare_spmm_operand(a_sp, n_chunks=n_chunks)
+    p0 = tuple_to_f32_dense(a_sp)
+
+    def launch(p, _):
+        return ops_spmm.spmm_dense(cols, vals, lrow, p, rows_per_chunk=rpc)
+
+    steps = [_Step(launch, None, step_bytes(a.nnz, a.n_rows, a.n_cols), f"dense {device.type}")
+             for _ in range(max_step - 1)]
+    return _time_chain(steps, p0, spmm.prepare_sparse_operand(a, device), iters,
+                       native_stats, verbose)
+
+
+def run_chain_band(a: HostCSR, device, half_width: int, block: int = 125, max_step: int = 7,
+                   iters: int = 3, native_stats: Optional[list] = None,
+                   verbose: bool = True) -> Tuple[List[ChainStep], bandmm.BandMatrix]:
+    """The block-band chain (``run_chain_band`` in the JAX package,
+    ``bench.py --algo band``): C_k = C_(k-1) x A with both operands cyclic
+    block bands of block size ``block`` (the torus has no outliers), each
+    step ``bandmm.band_matmul``, folded once the product band is wider than
+    the matrix.  Values are guarded below 2^24.  Each step's time is the
+    least of ``iters`` calls (CUDA events on a GPU).  With ``native_stats``
+    every step's nnz and max are checked against the oracle (the JAX driver
+    checks neither).  Returns the per-step records and the final band."""
+    device = torch.device(device)
+    _check_chain_args(max_step, iters, native_stats)
+    band_a, outliers = bandmm.csr_band_split(sparse_operand(a, device), half_width,
+                                             block=block, cyclic=True)
+    if int(outliers.nnz):
+        raise ValueError(f"the band chain needs a cyclic band: {int(outliers.nnz)} "
+                         f"entries lie outside half-width {half_width}")
+    results: List[ChainStep] = []
+    prev = band_a
+    for step in range(2, max_step + 1):
+        # JAX's driver passes limb counts here; they change only its cost
+        c, dt = _timed_calls(lambda: bandmm.band_matmul(prev, band_a), iters, device)
+        vmax = float(c.max_value())
+        if vmax >= F32_EXACT_LIMIT - 8:
+            raise OverflowError(f"A^{step} reached the f32 exact range ({vmax})")
+        nnz = int(c.nnz())
+        if native_stats is not None:
+            _, want_nnz, want_max, _ = native_stats[step - 2]
+            if (nnz, vmax) != (want_nnz, float(want_max)):
+                raise RuntimeError(f"A^{step}: (nnz, max) = ({nnz}, {vmax:.0f}) but the "
+                                   f"oracle has ({want_nnz}, {want_max})")
+        rec = ChainStep(step=step, nnz=nnz, flops=0, seconds=dt, nnz_per_s=nnz / dt,
+                        gflops=0.0, max_value=vmax)
+        results.append(rec)
+        if verbose:
+            print(f"A^{step} [band {device.type}, K={c.k_blocks}]: nnz={nnz} "
+                  f"time={dt * 1e3:.4f}ms nnz/s={rec.nnz_per_s / 1e6:.1f}M max={vmax:.0f}",
+                  flush=True)
+        prev = c
+    return results, prev
 
 
 def fold(a: HostCSR, perm: np.ndarray) -> Tuple[HostCSR, int]:
@@ -547,13 +656,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         help="skip the C++ oracle and its checks")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu, which runs the plain version")
-    parser.add_argument("--algo", choices=("auto", "foldband", "mixed", "rowcat"),
-                        default="auto",
-                        help="auto: the router's route (dense-acc, or the rowcat chain "
-                             "for its 'esc'); foldband: the fold-band chain, as bench.py "
-                             "--algo foldband; mixed: slab ESC, then dense-acc from "
-                             "--switch-step, as bench.py --algo mixed; rowcat: the "
-                             "row-categorized chain, as bench.py --algo rowcat")
+    parser.add_argument("--algo", choices=ALGOS, default="auto",
+                        help="auto: the router's route (pallas, band, or rowcat for its "
+                             "'esc'); pallas: the dense-accumulator SpMM (--kernel); dense: "
+                             "the plain-torch gather/segment-sum SpMM; band: the block-band "
+                             "product; esc, escb, rowcat: the ESC, blocked-ESC and "
+                             "row-categorized SpGEMMs; mixed: slab ESC, then dense-acc from "
+                             "--switch-step; foldband: the fold-band chain (bench.py's "
+                             "--algo values)")
     parser.add_argument("--switch-step", type=int, default=5,
                         help="mixed chain: the first step on the dense-accumulator "
                              "SpMM (earlier steps ride slab ESC)")
@@ -561,7 +671,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         help="SpMM of the dense-acc route: dense-acc or group-dot, "
                              "which are bench.py --pallas-kernel vpu|mxu")
     args = parser.parse_args(argv)
-    if args.algo != "auto" and args.kernel != "dense-acc":
+    if args.algo not in ("auto", "pallas") and args.kernel != "dense-acc":
         parser.error(f"--kernel selects the dense-acc route's SpMM; --algo {args.algo} "
                      "runs its own")
 
@@ -583,41 +693,42 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
              f"max={native_stats[-1][2]} ({time.perf_counter() - t0:.1f}s)")
 
     extra = {}
-    if args.algo == "foldband":
+    algo = args.algo
+    if algo == "auto":
+        strategy = choose_strategy(h, steps=args.steps - 1)
+        algo = ROUTE_ALGO[strategy]
+        _log(f"choose_strategy -> {strategy} (algo={algo})")
+        if algo != "pallas" and args.kernel != "dense-acc":
+            raise ValueError(f"--kernel {args.kernel} selects the dense-acc route's SpMM; "
+                             f"the router chose {strategy!r}, the {algo} chain")
+    run_kw = dict(max_step=args.steps, iters=args.iters, native_stats=native_stats)
+    p = None  # the final dense product, for the value check (CSR chains check every step)
+    if algo == "foldband":
         kernel = "band"
-        results, p_band, base, perm = run_chain_foldband(
-            h, device, dims, max_step=args.steps, iters=args.iters,
-            native_stats=native_stats)
+        results, p_band, base, perm = run_chain_foldband(h, device, dims, **run_kw)
         p = unfold_band(p_band, base, perm) if native_final is not None else None
-    elif args.algo == "mixed":
+    elif algo == "mixed":
         kernel = "slab+dense-acc"
         switch = min(args.switch_step, args.steps + 1)
-        results, p, t_dens = run_chain_mixed(h, device, max_step=args.steps,
-                                             switch_step=switch, iters=args.iters,
-                                             native_stats=native_stats)
+        results, p, t_dens = run_chain_mixed(h, device, switch_step=switch, **run_kw)
         extra = {"switch_step": switch, "densify_ms": t_dens * 1e3}
+    elif algo in ("esc", "escb", "rowcat"):
+        kernel = algo
+        run = {"esc": run_chain, "escb": run_chain_escb, "rowcat": run_chain_rowcat}[algo]
+        results, _ = run(h, device, **run_kw)
+    elif algo == "dense":
+        kernel = "dense"
+        results, p = run_chain_dense(h, device, **run_kw)
+    elif algo == "band":
+        kernel = "band-matmul"
+        half_width = bandmm.cyclic_bandwidth(h)
+        block = BAND_BLOCKS.get(h.n_rows, 125)
+        _log(f"cyclic bandwidth: {half_width}, block {block}")
+        results, band = run_chain_band(h, device, half_width, block=block, **run_kw)
+        p = bandmm.band_to_dense(band) if native_final is not None else None
     else:
-        algo = args.algo
-        if algo == "auto":
-            strategy = choose_strategy(h, steps=args.steps - 1)
-            _log(f"choose_strategy -> {strategy}")
-            if strategy == "band":
-                raise NotImplementedError(BAND_NOT_PORTED)
-            if strategy == "esc":
-                if args.kernel != "dense-acc":
-                    raise ValueError(f"--kernel {args.kernel} selects the dense-acc route's "
-                                     "SpMM; the router chose 'esc', the rowcat chain")
-                algo = "rowcat"
-        if algo == "rowcat":
-            kernel = "rowcat"
-            results, _ = run_chain_rowcat(h, device, max_step=args.steps, iters=args.iters,
-                                          native_stats=native_stats)
-            p = None  # every step's whole CSR was checked against the oracle
-        else:
-            kernel = args.kernel
-            results, p = run_chain_dense_acc(h, device, max_step=args.steps,
-                                             iters=args.iters, native_stats=native_stats,
-                                             kernel=kernel)
+        kernel = args.kernel
+        results, p = run_chain_dense_acc(h, device, kernel=kernel, **run_kw)
     total = sum(r.seconds for r in results) + extra.get("densify_ms", 0.0) / 1e3
     print(f"chain total (A^2..A^{args.steps}{', incl. densify' if extra else ''}): "
           f"{total * 1e3:.4f}ms on {device_name(device)}  [reference CSR-par total "

@@ -7,11 +7,17 @@ writes the JAX package's CSV:
 
     case,n,e_per_n,nnz_a,flops,nnz_c,algo,seconds,mproducts_per_s
 
-Algorithms: ``esc`` (ops/spgemm.py), ``escb`` (ops/escb.py), ``rowcat`` (the
-row-categorized SpGEMM in JAX's batched formulation) and ``rowcat_pallas``
-(the same through the sort-merge kernel, ``kernels/sortmerge.py``; the label
-is JAX's, so the two sweeps' rows align).  The graphs come from the same
-generators and seeds as JAX's.
+Algorithms, JAX's eight: ``esc`` (ops/spgemm.py), ``escb`` (ops/escb.py),
+``rowcat`` (the row-categorized SpGEMM in JAX's batched formulation),
+``rowcat_pallas`` (the same through the sort-merge kernel,
+``kernels/sortmerge.py``; the label is JAX's, so the two sweeps' rows
+align), ``denseacc`` (ops/denseacc.py, the dense-accumulator kernel),
+``densedense`` and ``densedense_tiled`` (one fp32 matrix product of the
+densified operands, whole or in column panels) and ``bcoo`` (the
+``torch.sparse`` comparator, utils/bcoo.py).  The graphs come from the same
+generators and seeds as JAX's, and so do the DNF rules of the dense routes:
+``densedense`` where ``densedense_fits(n, n, n)`` fails, ``densedense_tiled``
+where no panel fits.
 
 Differences from the JAX package:
 
@@ -22,14 +28,16 @@ Differences from the JAX package:
   calls, by CUDA events around each whole call, host launches included
   (``bench/tipover.time_call``).  As in JAX, ``rowcat`` and
   ``rowcat_pallas`` time the numeric phase with a fixed plan
-  (``rowcat_numeric``) and ``escb`` its device half with a fixed packing
+  (``rowcat_numeric``), ``escb`` its device half with a fixed packing
   (``blocked_numeric``, which also covers wide rows, where JAX's timing
-  asserted); ``esc`` times the whole ``spgemm`` call.
+  asserted), ``denseacc`` its device half with a fixed operand
+  (``dense_acc_numeric``), ``densedense`` ``densedense_numeric`` and
+  ``bcoo`` the sparse x sparse product alone, its operands converted
+  before; ``esc`` times the whole ``spgemm`` call, and ``densedense_tiled``
+  whole calls by the host clock (its sweeps read their counts back).
 - The fused repetition loops, the input "bump" and the DNF budgets of
   JAX's sweep were remote-TPU machinery and are gone.  A CUDA
   out-of-memory error becomes a DNF row, its memory released.
-- ``denseacc``, ``densedense``, ``densedense_tiled`` and ``bcoo`` are not
-  ported yet (ROADMAP.md queue 1) and raise.
 
 Run: ``python -m sparsetpu_torch.bench.spgemm_bench [--sides ...]
 [--e-per-n ...] [--power-law-sides ...] [--algos ...] [--no-prelude]
@@ -39,7 +47,9 @@ Run: ``python -m sparsetpu_torch.bench.spgemm_bench [--sides ...]
 from __future__ import annotations
 
 import argparse
+import math
 import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -48,14 +58,15 @@ import torch
 from .. import native
 from ..csr import SparseCSR
 from ..graphs import datasets, generate
-from ..ops import escb, rowcat
+from ..ops import denseacc, escb, rowcat
 from ..ops.spgemm import pow2, spgemm, symbolic_flops_exact
 from ..semiring import U64
+from ..utils import bcoo
 from .tipover import time_call
 
 HEADER = "case,n,e_per_n,nnz_a,flops,nnz_c,algo,seconds,mproducts_per_s"
-ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas")
-NOT_PORTED = ("denseacc", "densedense", "densedense_tiled", "bcoo")
+ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas", "denseacc", "densedense",
+         "densedense_tiled", "bcoo")
 
 
 def make_cases(sides=(1000, 3375, 8000, 27000), e_per_n=(2, 8, 32),
@@ -84,8 +95,12 @@ def case_operand(coo, device) -> SparseCSR:
 
 
 def algo_call(a: SparseCSR, algo: str):
-    """The call a row times, a function of no arguments returning A x A; the
-    host half (the expansion capacity, a plan) runs here, once."""
+    """The call a row times, a function of no arguments returning A x A (for
+    ``bcoo`` the ``torch.sparse`` product, which ``bcoo.bcoo_to_csr`` turns
+    into a CSR); the host half (the expansion capacity, a plan, the dense
+    operand, the library's operands) runs here, once.  A dense route that
+    JAX's rule finds too large raises RuntimeError("DNF_error")."""
+    n = a.n_rows
     if algo == "esc":
         cap = pow2(symbolic_flops_exact(a, a))
         return lambda: spgemm(a, a, cap)
@@ -96,7 +111,37 @@ def algo_call(a: SparseCSR, algo: str):
         config = rowcat.rowcat_config(a, a)
         use_kernel = algo == "rowcat_pallas"
         return lambda: rowcat.rowcat_numeric(a, a, *config, use_kernel=use_kernel)
+    if algo in ("denseacc", "densedense"):
+        cap = pow2(min(symbolic_flops_exact(a, a), n * n))
+        if algo == "denseacc":
+            op = denseacc.plan_dense_acc(a)
+            return lambda: denseacc.dense_acc_numeric(op, a, cap)
+        if not denseacc.densedense_fits(n, n, n):
+            raise RuntimeError("DNF_error")
+        return lambda: denseacc.densedense_numeric(a, a, cap)
+    if algo == "densedense_tiled":
+        w = denseacc.densedense_tiled_panel_cols(n, n)
+        if not w:
+            raise RuntimeError("DNF_error")
+        return lambda: denseacc.spgemm_dense_dense_tiled(a, a, panel_cols=w)
+    if algo == "bcoo":
+        am = bcoo.csr_to_bcoo(a)
+        return lambda: torch.sparse.mm(am, am)
     raise ValueError(f"unknown algorithm {algo!r}; have {ALGOS}")
+
+
+def host_clock_time(fn, iters: int, device: torch.device) -> float:
+    """Least seconds of ``iters`` whole calls by the host clock, each ending
+    in a synchronise (for calls that synchronise inside)."""
+    fn()
+    best = math.inf
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def run(sides=(1000, 3375, 8000, 27000), e_per_n=(2, 8, 32), power_law_sides=(27000,),
@@ -107,10 +152,8 @@ def run(sides=(1000, 3375, 8000, 27000), e_per_n=(2, 8, 32), power_law_sides=(27
     row categories (L, rows, route of ``rowcat_pallas``) when ``verbose``;
     every row checks its own product against the oracle."""
     for algo in algos:
-        if algo in NOT_PORTED:
-            raise NotImplementedError(f"algorithm {algo!r} is not ported yet (ROADMAP.md)")
         if algo not in ALGOS:
-            raise ValueError(f"unknown algorithm {algo!r}; have {ALGOS + NOT_PORTED}")
+            raise ValueError(f"unknown algorithm {algo!r}; have {ALGOS}")
     device = torch.device(device)
     rows: List[str] = [HEADER]
 
@@ -149,8 +192,14 @@ def run(sides=(1000, 3375, 8000, 27000), e_per_n=(2, 8, 32), power_law_sides=(27
         for algo in algos:
             try:
                 call = algo_call(a, algo)
-                check_against_oracle(call(), want, algo)
-                t = time_call(call, iters, device)
+                out = call()
+                check_against_oracle(bcoo.bcoo_to_csr(out) if algo == "bcoo" else out,
+                                     want, algo)
+                del out
+                # the panel sweep reads its counts back inside the call: whole
+                # calls by the host clock, as JAX times it
+                timer = host_clock_time if algo == "densedense_tiled" else time_call
+                t = timer(call, iters, device)
             except Exception as e:  # record the DNF and keep sweeping
                 emit(f"{prefix},{algo},DNF_error,0.0",
                      f"  # {type(e).__name__}: {str(e)[:160]}")

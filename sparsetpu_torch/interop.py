@@ -61,6 +61,13 @@ def sparse_csr_from_jax(row_ptr, col_idx, limbs, nnz, n_rows: int, n_cols: int,
                                       int(n_cols), by_name(sr_name), device)
 
 
+def carry_csr(j, device=DEFAULT_DEVICE) -> SparseCSR:
+    """``sparse_csr_from_jax`` of a JAX ``SparseCSR`` object itself (its
+    fields read as numpy arrays)."""
+    return sparse_csr_from_jax(j.row_ptr, j.col_idx, [np.asarray(x) for x in j.values],
+                               j.nnz, j.n_rows, j.n_cols, j.sr_name, device)
+
+
 def block_sparse_from_jax(blocks, block_rows, block_cols, shape, block_shape,
                           device=DEFAULT_DEVICE) -> BlockSparseMatrix:
     """The port's ``BlockSparseMatrix`` from the arrays of a JAX one."""

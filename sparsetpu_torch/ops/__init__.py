@@ -1,1 +1,2 @@
-"""Operations of the port: the chain router, sorted-segment primitives, ESC SpGEMM."""
+"""Operations of the port: sorted-segment primitives, the SpGEMM routes and
+their router (``spgemm_auto``), SpMM, elementwise ops, and the chain router."""

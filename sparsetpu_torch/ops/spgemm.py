@@ -12,15 +12,21 @@ C = A x B by expand-sort-compress, in plain PyTorch tensor ops:
 
 No step synchronises with the host, so a product on the GPU is one stream of
 launches.  An expansion larger than ``expand_cap`` poisons nnz to -1.
-``spgemm_auto`` and its routing constants (measured on the TPU) wait for the
-next slice, with the slab, column-chunk and dense-accumulator routes
-(ROADMAP.md queue 1).
+
+``spgemm_auto`` is the public SpGEMM entry point: it counts the products on
+the host and routes to one of the ported kernels (dense-dense tiers, ESC,
+the slab, column-chunk, dense-accumulator and row-categorized SpGEMMs) by
+the JAX package's rule, with its TPU-measured constants unchanged
+(``auto_route``); re-deriving them for an 80 GB card is a ROADMAP item.
+Where JAX catches the TPU's ``RESOURCE_EXHAUSTED`` the port catches
+``torch.cuda.OutOfMemoryError``, and its colchunk fallback also catches it
+(JAX's catches ``ValueError`` only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -173,3 +179,121 @@ def spadd(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None) -> SparseCS
     vals = tuple(torch.cat([x, y]) for x, y in zip(a.values, b.values))
     return SparseCSR.from_coo_device(rows, cols, vals, a.n_rows, a.n_cols, a.sr,
                                      out_cap, valid=valid)
+
+
+def dense_acc_panel_cols(n_rows: int, budget_bytes: float = 6e9) -> int:
+    """Widest column panel (a multiple of 1024, at most 8192) such that the
+    tiled dense accumulator's peak panel footprint, ~4 live (n_rows, w) f32
+    arrays, fits the memory budget; 0 when a 1024-wide panel does not fit
+    (JAX's arithmetic and budget, unchanged)."""
+    w = int(budget_bytes // (16 * max(n_rows, 1))) // 1024 * 1024
+    return min(w, 8192)
+
+
+def auto_route(a: SparseCSR, b: SparseCSR, flops: int) -> Tuple[List[bool], str]:
+    """``spgemm_auto``'s route for kernel="auto", on the host, with JAX's
+    constants (measured on a TPU v5e).  Returns (the dense-dense tiers to
+    try first, in order: False the f32 tier, True the wide integer tier;
+    the route to take when none is tried or each poisons).
+
+    Dense-dense is tried when both densified operands fit
+    (``densedense_fits``) and its modelled time undercuts ESC's; its f32
+    tier only when both inputs are < 2^16 (the max values are read only
+    then).  Otherwise: "esc" up to 2^19 products, else the cheapest of
+    colchunk (~90 ns a product, up to 2^28), denseacc (~9 ns a frame
+    element, while B and C dense fit 6e9 bytes) and denseacc_tiled (~4.3
+    ns an element, when they do not), and "rowcat" when none fits."""
+    from .denseacc import densedense_fits
+
+    n, k, m = a.n_rows, a.n_cols, b.n_cols
+    tiers: List[bool] = []
+    if densedense_fits(n, k, m):
+        t_dd = (1e-3 + 0.2e-9 * (n * k + k * m + 3 * n * m) + 2.0 * n * k * m / 4.5e13
+                + 16e-9 * min(flops, n * m))
+        t_esc = 2e-3 + flops * 110e-9
+        if t_dd < t_esc:
+            amax, bmax = max_value(a), max_value(b)
+            if a.sr_name == "f32" or (amax < (1 << 16) and bmax < (1 << 16)):
+                tiers.append(False)
+            if a.sr_name in ("u32", "u64"):
+                tiers.append(True)
+    if flops <= (1 << 19):
+        return tiers, "esc"
+    padded_cols = -(-m // 1024) * 1024
+    fits = n * padded_cols * 4 * 2 <= 6e9
+    w = dense_acc_panel_cols(n)
+    t_cc = 5e-3 + flops * 90e-9 if flops <= (1 << 28) else float("inf")
+    t_dacc = n * padded_cols * 9e-9 if fits else float("inf")
+    t_tiled = n * padded_cols * 4.3e-9 if (w and not fits) else float("inf")
+    if min(t_dacc, t_tiled) < t_cc:
+        return tiers, "denseacc" if t_dacc <= t_tiled else "denseacc_tiled"
+    return tiers, "rowcat" if t_cc == float("inf") else "colchunk"
+
+
+KERNELS = ("auto", "esc", "rowcat", "denseacc", "denseacc_tiled", "densedense", "colchunk",
+           "slab", "escb")
+
+
+def spgemm_auto(a: SparseCSR, b: SparseCSR, round_to_pow2: bool = True,
+                kernel: str = "auto") -> SparseCSR:
+    """C = A x B routed on the host, as the JAX package's ``spgemm_auto``:
+    the exact product count, then ``auto_route``'s dense-dense tiers (a
+    tier that poisons, or runs out of card memory, passes to the next) and
+    route, and each route's fallback: denseacc and denseacc_tiled fall back
+    to rowcat when a value is too wide for the f32 carrier; colchunk, when
+    it poisons or runs out of memory, to the panel sweep where a panel fits,
+    else to rowcat.  ``kernel`` forces a route (``KERNELS``).  A product of
+    2^31 or more partial products raises ValueError on the routes that
+    materialise the expansion (esc, rowcat).  Returns the checked product
+    (``check()`` raises on a poisoned one)."""
+    from . import colchunk, denseacc, escb, rowcat, slab
+
+    if a.n_cols != b.n_rows or a.sr_name != b.sr_name:
+        raise ValueError(f"{a.shape} {a.sr_name} x {b.shape} {b.sr_name} do not chain")
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
+    flops = symbolic_flops_exact(a, b)
+    out_cap = pow2(min(flops, a.n_rows * b.n_cols))
+    if kernel == "auto":
+        tiers, kernel = auto_route(a, b, flops)
+        for wide in tiers:
+            try:
+                return denseacc.spgemm_dense_dense(a, b, out_cap=out_cap, wide=wide).check()
+            except ValueError:
+                pass  # the on-device range check poisoned: the next tier
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()  # JAX: RESOURCE_EXHAUSTED -> the sort paths
+    if flops >= 1 << 31 and kernel in ("esc", "rowcat"):
+        raise ValueError(f"spgemm expansion of {flops} products cannot be materialized "
+                         "(int32 indexing); split the product or use a dense path")
+    if kernel == "densedense":
+        return denseacc.spgemm_dense_dense(a, b).check()
+    if kernel in ("denseacc", "denseacc_tiled"):
+        try:
+            if kernel == "denseacc_tiled":
+                return denseacc.spgemm_dense_acc_tiled(
+                    a, b, panel_cols=dense_acc_panel_cols(a.n_rows)).check()
+            return denseacc.spgemm_dense_acc(a, b).check()
+        except ValueError:
+            kernel = "rowcat"  # the value range is too wide for the f32 carrier
+    if kernel == "colchunk":
+        try:
+            return colchunk.spgemm_colchunk(a, b).check()
+        except (ValueError, torch.cuda.OutOfMemoryError):
+            # a hub row too wide for the slab's wide pass, a poisoned chunk,
+            # or the card's memory: the panel sweep where a panel fits
+            torch.cuda.empty_cache()
+            w = dense_acc_panel_cols(a.n_rows)
+            if w:
+                return denseacc.spgemm_dense_acc_tiled(a, b, panel_cols=w).check()
+            kernel = "rowcat"
+    if kernel == "rowcat":
+        return rowcat.spgemm_rowcat(a, b).check()
+    if kernel == "slab":
+        return slab.spgemm_slab(a, b, out_cap=out_cap).check()
+    if kernel == "escb":
+        return escb.spgemm_blocked(a, b, out_cap=out_cap).check()
+    cap = max(flops, 1)
+    if round_to_pow2:
+        cap = pow2(cap)
+    return spgemm(a, b, expand_cap=cap, narrow=narrow_u64_ok(a, b)).check()

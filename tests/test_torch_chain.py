@@ -28,7 +28,7 @@ from sparsetpu_torch import native as tnative
 from sparsetpu_torch.bench import chain as tchain
 from sparsetpu_torch.csr import HostCSR
 from sparsetpu_torch.interop import csr_from_jax_host, dense_from_row_planes
-from sparsetpu_torch.kernels import bandplanes
+from sparsetpu_torch.kernels import bandmm, bandplanes
 from sparsetpu_torch.ops.hybrid import choose_strategy
 
 
@@ -263,10 +263,66 @@ def test_main_without_cuda_raises():
         tchain.main(["--quick", "--no-verify"])
 
 
-def test_main_refuses_unported_routes(monkeypatch):
+def test_main_refuses_unported_routes(monkeypatch, capsys):
+    """The router's "band" route, once refused, now runs the block-band
+    chain (bench.py maps "band" to run_chain_band), checked against the
+    oracle at every step and on the final values."""
     monkeypatch.setattr(tchain, "choose_strategy", lambda h, steps: "band")
-    with pytest.raises(NotImplementedError, match="kernels/bandmm.py"):
-        tchain.main(["--quick", "--device", "cpu", "--no-verify", "--steps", "3"])
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", "3", "--iters", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == record
+    assert record["verified"] and (record["algo"], record["kernel"]) == ("auto", "band-matmul")
+    assert sum(line.startswith("A^") and "[band cpu" in line for line in out) == 2
+
+
+@pytest.mark.parametrize("algo,kernel,label", [
+    ("esc", "esc", "esc"), ("escb", "escb", "escb"), ("dense", "dense", "dense"),
+    ("band", "band-matmul", "band"), ("pallas", "dense-acc", "dense-acc"),
+])
+def test_main_runs_every_algo_on_12_cubed(capsys, algo, kernel, label):
+    """bench.py's --algo forms on the 12^3 torus, A^2..A^4, each against the
+    oracle (every step's (nnz, max); the whole CSR for esc and escb, the
+    final values for the dense forms)."""
+    record = tchain.main(["--quick", "--device", "cpu", "--steps", "4", "--iters", "1",
+                          "--algo", algo])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1]) == record
+    assert record["verified"] and (record["algo"], record["kernel"]) == (algo, kernel)
+    assert record["metric"] == "spgemm_chain_A4_nnz_per_s" and record["value"] > 0
+    assert sum(line.startswith("A^") and f"[{label} cpu" in line for line in out) == 3
+
+
+def test_esc_escb_dense_band_chains_match_oracle_and_jax(torus4, pallas_final4):
+    """The 4^3 torus, A^2..A^4: the ESC and blocked-ESC chains equal the
+    oracle's whole CSR, the dense and band chains its values and JAX's
+    Pallas chain; the band chain's per-step nnz equal JAX's run_chain_band."""
+    jh, th, stats, final = torus4
+    want_steps = [(s, nnz, float(mx)) for s, nnz, mx, _ in stats]
+    for run in (tchain.run_chain, tchain.run_chain_escb):
+        results, c = run(th, "cpu", max_step=4, iters=1, native_stats=stats, verbose=False)
+        assert [(r.step, r.nnz, r.max_value) for r in results] == want_steps
+        assert [r.flops for r in results] == [s[3] for s in stats]
+        for got, want in zip(c.to_numpy(), final):
+            np.testing.assert_array_equal(got.astype(want.dtype), want)
+    results, p = tchain.run_chain_dense(th, "cpu", max_step=4, iters=1, n_chunks=3,
+                                        native_stats=stats, verbose=False)
+    _assert_chain_matches(results, p, stats, final, pallas_final4)
+    results, band = tchain.run_chain_band(th, "cpu", 21, block=8, max_step=4, iters=1,
+                                          native_stats=stats, verbose=False)
+    assert [(r.step, r.nnz, r.max_value) for r in results] == want_steps
+    np.testing.assert_array_equal(bandmm.band_to_dense(band).numpy(), pallas_final4)
+    jres = jchain.run_chain_band(jh.to_device(), half_width=21, block=8, max_step=4, iters=1,
+                                 verbose=False)
+    assert [r.nnz for r in jres] == [r.nnz for r in results]
+    bad = [stats[0], (3, stats[1][1] + 1, *stats[1][2:]), stats[2]]
+    for run in (tchain.run_chain, tchain.run_chain_escb, tchain.run_chain_dense):
+        with pytest.raises(RuntimeError, match="A\\^3"):
+            run(th, "cpu", max_step=4, iters=1, native_stats=bad, verbose=False)
+    with pytest.raises(RuntimeError, match="A\\^3"):
+        tchain.run_chain_band(th, "cpu", 21, block=8, max_step=4, iters=1, native_stats=bad,
+                              verbose=False)
+    with pytest.raises(ValueError, match="cyclic band"):
+        tchain.run_chain_band(th, "cpu", 3, block=8, max_step=3, iters=1, verbose=False)
 
 
 def test_main_routes_esc_to_the_rowcat_chain(capsys):
@@ -312,7 +368,10 @@ def test_port_never_imports_jax():
             "sparsetpu_torch.kernels.sortmerge, sparsetpu_torch.ops.rowcat, "
             "sparsetpu_torch.ops.escb, sparsetpu_torch.graphs.datasets, "
             "sparsetpu_torch.kernels.coalesce, sparsetpu_torch.ops.slab, "
-            "sparsetpu_torch.ops.colchunk; "
+            "sparsetpu_torch.ops.colchunk, sparsetpu_torch.ops.denseacc, "
+            "sparsetpu_torch.ops.spmm, sparsetpu_torch.ops.elementwise, "
+            "sparsetpu_torch.ops.hybrid, sparsetpu_torch.kernels.bandmm, "
+            "sparsetpu_torch.utils.bcoo; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
             "print(bad); sys.exit(1 if bad else 0)")

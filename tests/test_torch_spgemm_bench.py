@@ -1,7 +1,8 @@
 """The port's general-SpGEMM sweep (sparsetpu_torch.bench.spgemm_bench) on
 the CPU at a toy size: its rows' graph columns equal the values computed
-from the JAX package's generators and its native oracle, every algorithm
-agrees with the oracle (no DNF row), and the unported algorithms raise."""
+from the JAX package's generators and its native oracle, every one of JAX's
+eight algorithms agrees with the oracle (no DNF row), the dense routes keep
+JAX's DNF rules, and an unknown algorithm raises."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,11 @@ from sparsetpu.graphs import datasets as jdata, generate as jgen
 
 from sparsetpu_torch.bench import spgemm_bench as sb
 
-ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas")
+from sparsetpu.bench import spgemm_bench as jsb
+from sparsetpu.ops import denseacc as jdenseacc
+
+ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas", "denseacc", "densedense",
+         "densedense_tiled", "bcoo")
 
 
 def _jax_columns(case, n, epn, coo):
@@ -54,12 +59,43 @@ def test_cases_match_jax_generators():
             np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("algo", sb.NOT_PORTED)
+def test_algos_are_jaxs_eight():
+    assert sb.ALGOS == ALGOS
+    for algo in ALGOS:  # each is a branch of JAX's sweep
+        assert f'algo == "{algo}"' in open(jsb.__file__).read()
+
+
+@pytest.mark.parametrize("algo", ["denseacc", "densedense", "densedense_tiled", "bcoo"])
 def test_unported_algorithms_raise(algo):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sb.run(sides=(40,), e_per_n=(2,), power_law_sides=(), algos=(algo,), device="cpu")
+    """The four algorithms the sweep once refused now give a row equal to
+    the oracle; only an unknown algorithm raises."""
+    csv = sb.run(sides=(40,), e_per_n=(2,), power_law_sides=(), algos=(algo,), iters=1,
+                 verbose=False, device="cpu")
+    (row,) = [line.split(",") for line in csv.strip().split("\n")[1:]]
+    assert row[6] == algo and float(row[7]) > 0
     with pytest.raises(ValueError):
-        sb.run(sides=(40,), e_per_n=(2,), power_law_sides=(), algos=("nope",), device="cpu")
+        sb.run(sides=(40,), e_per_n=(2,), power_law_sides=(), algos=(algo, "nope"),
+               device="cpu")
+
+
+def test_dense_routes_keep_jaxs_dnf_rules(monkeypatch):
+    """densedense where densedense_fits(n, n, n) fails and densedense_tiled
+    where no panel fits give DNF_error rows, as in JAX's sweep; the other
+    rows still run."""
+    for n in (8000, 27000):
+        assert sb.denseacc.densedense_fits(n, n, n) == jdenseacc.densedense_fits(n, n, n)
+        assert sb.denseacc.densedense_tiled_panel_cols(n, n) == \
+            jdenseacc.densedense_tiled_panel_cols(n, n)
+    assert not sb.denseacc.densedense_fits(27000, 27000, 27000)
+    monkeypatch.setattr(sb.denseacc, "densedense_fits", lambda n, k, m: False)
+    monkeypatch.setattr(sb.denseacc, "densedense_tiled_panel_cols", lambda n, k: 0)
+    csv = sb.run(sides=(40,), e_per_n=(2,), power_law_sides=(),
+                 algos=("densedense", "densedense_tiled", "denseacc"), iters=1, verbose=False,
+                 device="cpu")
+    rows = [line.split(",") for line in csv.strip().split("\n")[1:]]
+    assert [(r[6], r[7]) for r in rows[:2]] == [("densedense", "DNF_error"),
+                                                 ("densedense_tiled", "DNF_error")]
+    assert rows[2][6] == "denseacc" and float(rows[2][7]) > 0
 
 
 def test_main_writes_the_csv_on_cpu(tmp_path):
