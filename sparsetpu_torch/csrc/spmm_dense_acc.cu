@@ -11,76 +11,200 @@
 // There is no matrix product here, so TF32 cannot enter; its plain version
 // (kernels/spmm.py) must not be replaced by a dense TF32 product either.
 //
-// What bounds it on the card: device-memory bytes.  Every P row is read once
-// for each entry that references it and C is written once, so a step of the
-// thinned 30^3 torus chain moves nnz(A) * m * 4 B = 80,882 * 27,000 * 4 B
-// (8.74 GB) of P-row reads and n * m * 4 B (2.92 GB) of C writes, against a
-// handful of FLOPs per byte.  The design keeps to that minimum and leaves the
-// rest to the 50 MB L2, which catches re-reads of the rows that neighbouring
-// output rows share:
-//   - one block per (output row, 1024-column chunk): rows on gridDim.x (no
-//     65,535 cap there), chunks on gridDim.y;
-//   - each thread owns 4 consecutive columns and keeps their sums in
-//     registers, as one float4 where m % 4 == 0 and the pointers are 16-byte
-//     aligned, else as 4 masked scalars;
-//   - the thread walks the row's entries, reading col/val (the same address
-//     across the block) and then its 16 bytes of the P row (coalesced across
-//     the warp), and writes its part of C exactly once;
-//   - addresses are computed in int64: col * m + j overflows int32 once
-//     n > 46,340.
-// The TPU kernel's DMA ring, padded branch-free entries and row-plane layout
-// are TPU artifacts and are not carried over.  Staging P rows through
-// cp.async/TMA is left to later tuning.
+// What bounds it on the card.  Every entry of A reads m floats of one P
+// row, so a call gathers nnz(A) * m * 4 B: 8.74 GB for a step of the
+// thinned 30^3 torus chain (3 entries a row), 93.3 GB for the ER 27,000 x 32
+// operand times its dense self (32 a row), against compulsory bytes (each P
+// row and C once) of 5.8 GB.  Those gathers can only come at the rate of the
+// 50 MB L2 if the P rows they re-read are still there, and the rows of a
+// random graph reference P rows all over: a whole P (2.9 GB at n = 27,000)
+// never fits.  So the design cuts the columns into panels:
+//   - a launch works on panels of W columns, W a power of two from 128 to
+//     1,024 (whole 512-byte warp lines), the widest with n x W x 4 B within
+//     half of the device's L2 (cudaDevAttrL2CacheSize), and no wider than m
+//     needs.  P's row count is not passed in, so A's row count n_rows stands
+//     for it: every caller's A is square, and a row slice of A only takes a
+//     wider panel than its P would fit (W = 128 at n = 27,000);
+//   - blocks go panel-major (a 1-D grid, panel = block / row blocks), so all
+//     rows of one panel run before the next and re-read that panel's P
+//     columns from L2: P comes from device memory about once;
+//   - a block of 8 warps takes 32 rows of one panel, a warp a row at a time
+//     (the next free row from a shared counter, so short and long rows
+//     balance across the warps); a warp stages 32 of its row's (col, val)
+//     entries with one coalesced load and hands them out by __shfl_sync,
+//     and each lane keeps 8 independent 16-byte P loads in flight (float4
+//     where m % 4 == 0 and P and C are 16-byte aligned; else scalar loads
+//     with the ragged columns masked), then adds them in entry order;
+//   - a row of more than 128 entries is split across the block's 8 warps in
+//     equal runs of entries; the 8 partial rows meet in shared memory and
+//     are added in warp order.  Every output element is thus summed in a
+//     fixed order (CSR order within a thread, then warp order), with no
+//     atomics on floats: the result is the same in every run, and exact on
+//     integer values below 2^24, where every order is exact;
+//   - C is written once, by streaming stores (no memset); addresses are
+//     int64 (col * m + j overflows int32 once n > 46,340).
+// The TPU kernel's DMA ring over P rows (spmm_pallas.py:128-158) was its
+// answer to the same latency; here the loads in flight across the warps are.
+// Its padded branch-free entries and row-plane layout are TPU artifacts and
+// are not carried over.  Nothing here changes a stream attribute or device
+// state: panel order alone keeps the panel in L2.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kColsPerThread = 4;
-constexpr int kColsPerBlock = kThreads * kColsPerThread;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerBlock = 32;  // one warp's ballot covers the block's rows
+constexpr int kLongRow = 128;      // entries above which the block splits a row
+constexpr int kMinPanel = 128;     // columns: one float4 a lane of a warp
+constexpr int kMaxPanel = 1024;
+constexpr int kInFlight = 32;      // P floats a lane has in flight
+constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kVec4>
+// A lane's unit of P: a float4 (4 columns) or a float (1 column).
+__device__ __forceinline__ void zero(float4& x) { x = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void zero(float& x) { x = 0.f; }
+__device__ __forceinline__ void load(float4& x, const float* ptr) {
+    x = __ldg(reinterpret_cast<const float4*>(ptr));
+}
+__device__ __forceinline__ void load(float& x, const float* ptr) { x = __ldg(ptr); }
+__device__ __forceinline__ void fma_into(float4& acc, float v, const float4& x) {
+    acc.x = fmaf(v, x.x, acc.x);
+    acc.y = fmaf(v, x.y, acc.y);
+    acc.z = fmaf(v, x.z, acc.z);
+    acc.w = fmaf(v, x.w, acc.w);
+}
+__device__ __forceinline__ void fma_into(float& acc, float v, float x) { acc = fmaf(v, x, acc); }
+__device__ __forceinline__ void store(float* ptr, const float4& x) {
+    __stcs(reinterpret_cast<float4*>(ptr), x);
+}
+__device__ __forceinline__ void store(float* ptr, float x) { __stcs(ptr, x); }
+__device__ __forceinline__ void store_shared(float* ptr, const float4& x) {
+    *reinterpret_cast<float4*>(ptr) = x;
+}
+__device__ __forceinline__ void store_shared(float* ptr, float x) { *ptr = x; }
+
+// acc[s] = sum over entries e in [e_begin, e_end), in order, of
+// val[e] * P[col[e], j .. j + width) with j = col0 + s * 32 * width: a lane's
+// share of one row of one panel (slots at or past m stay 0).
+template <typename T, int kSlots>
+__device__ __forceinline__ void accumulate(T (&acc)[kSlots], int e_begin, int e_end,
+                                           const int32_t* __restrict__ col_idx,
+                                           const float* __restrict__ vals,
+                                           const float* __restrict__ p, int64_t m,
+                                           int64_t col0, int lane) {
+    constexpr int kWidth = sizeof(T) / sizeof(float);
+    constexpr int kUnroll = kInFlight / (kSlots * kWidth) > 0 ? kInFlight / (kSlots * kWidth) : 1;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) zero(acc[s]);
+    for (int base = e_begin; base < e_end; base += 32) {
+        const int cnt = min(32, e_end - base);
+        int my_col = 0;
+        float my_val = 0.f;
+        if (lane < cnt) {
+            my_col = __ldg(col_idx + base + lane);
+            my_val = __ldg(vals + base + lane);
+        }
+        for (int k = 0; k < cnt; k += kUnroll) {
+            T x[kUnroll][kSlots];
+            float v[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                const int src = (k + u) & 31;
+                const float* row = p + static_cast<int64_t>(__shfl_sync(kFull, my_col, src)) * m;
+                v[u] = __shfl_sync(kFull, my_val, src);
+#pragma unroll
+                for (int s = 0; s < kSlots; ++s) {
+                    const int64_t j = col0 + s * 32 * kWidth;
+                    if (k + u < cnt && j < m) load(x[u][s], row + j);
+                    else zero(x[u][s]);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+                if (k + u < cnt) {
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) fma_into(acc[s], v[u], x[u][s]);
+                }
+            }
+        }
+    }
+}
+
+// One launch over row blocks x panels of kSlots * 32 * width columns,
+// panel-major.  T = float4 needs m % 4 == 0 and 16-byte aligned P and C.
+template <typename T, int kSlots>
 __global__ void __launch_bounds__(kThreads)
 spmm_dense_acc_kernel(const int32_t* __restrict__ row_ptr,
                       const int32_t* __restrict__ col_idx,
                       const float* __restrict__ vals,
                       const float* __restrict__ p,
-                      float* __restrict__ c, int64_t m) {
-    const int64_t row = blockIdx.x;
-    const int64_t j =
-        (static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x) * kColsPerThread;
-    if (j >= m) return;
-    const int32_t e0 = row_ptr[row];
-    const int32_t e1 = row_ptr[row + 1];
-    float* out = c + row * m + j;
-    if (kVec4) {
-        // m % 4 == 0, so j < m implies all four columns are in range
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int32_t e = e0; e < e1; ++e) {
-            const float v = vals[e];
-            const float4 x = __ldg(reinterpret_cast<const float4*>(
-                p + static_cast<int64_t>(col_idx[e]) * m + j));
-            acc.x = fmaf(v, x.x, acc.x);
-            acc.y = fmaf(v, x.y, acc.y);
-            acc.z = fmaf(v, x.z, acc.z);
-            acc.w = fmaf(v, x.w, acc.w);
-        }
-        *reinterpret_cast<float4*>(out) = acc;
-    } else {
-        const int w = m - j < kColsPerThread ? static_cast<int>(m - j) : kColsPerThread;
-        float acc[kColsPerThread] = {0.f, 0.f, 0.f, 0.f};
-        for (int32_t e = e0; e < e1; ++e) {
-            const float v = vals[e];
-            const float* x = p + static_cast<int64_t>(col_idx[e]) * m + j;
+                      float* __restrict__ c, int64_t n_rows, int64_t m,
+                      int64_t row_blocks, int64_t n_blocks) {
+    constexpr int kWidth = sizeof(T) / sizeof(float);
+    constexpr int kPanel = kSlots * 32 * kWidth;
+    __shared__ int32_t s_ptr[kRowsPerBlock + 1];
+    __shared__ int s_next;
+    __shared__ __align__(16) float s_part[kWarps][kPanel];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+
+    for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+        const int64_t panel = b / row_blocks;
+        const int64_t row0 = (b - panel * row_blocks) * kRowsPerBlock;
+        const int rows = static_cast<int>(min(static_cast<int64_t>(kRowsPerBlock), n_rows - row0));
+        // this lane's first column; its slot s starts s * 32 * kWidth later
+        // (with float4, m % 4 == 0 keeps a slot's four columns inside m)
+        const int64_t col0 = panel * kPanel + lane * kWidth;
+        __syncthreads();  // the previous row block is done with shared memory
+        if (threadIdx.x <= rows) s_ptr[threadIdx.x] = row_ptr[row0 + threadIdx.x];
+        if (threadIdx.x == 0) s_next = 0;
+        __syncthreads();
+        const int len = lane < rows ? s_ptr[lane + 1] - s_ptr[lane] : 0;
+        const unsigned long_rows = __ballot_sync(kFull, len > kLongRow);
+
+        // rows of up to kLongRow entries: one warp each, the next free one
+        for (;;) {
+            int r = 0;
+            if (lane == 0) r = atomicAdd(&s_next, 1);
+            r = __shfl_sync(kFull, r, 0);
+            if (r >= rows) break;
+            if ((long_rows >> r) & 1u) continue;
+            T acc[kSlots];
+            accumulate(acc, s_ptr[r], s_ptr[r + 1], col_idx, vals, p, m, col0, lane);
+            float* out = c + (row0 + r) * m;
 #pragma unroll
-            for (int q = 0; q < kColsPerThread; ++q)
-                if (q < w) acc[q] = fmaf(v, __ldg(x + q), acc[q]);
+            for (int s = 0; s < kSlots; ++s) {
+                const int64_t j = col0 + s * 32 * kWidth;
+                if (j < m) store(out + j, acc[s]);
+            }
         }
+
+        // longer rows: warp w sums the w-th of 8 equal runs of entries; the
+        // partial rows are added in warp order
+        for (unsigned rest = long_rows; rest != 0u; rest &= rest - 1u) {
+            const int r = __ffs(rest) - 1;
+            const int e0 = s_ptr[r], e1 = s_ptr[r + 1];
+            const int run = (e1 - e0 + kWarps - 1) / kWarps;
+            const int lo = min(e0 + warp * run, e1);
+            T acc[kSlots];
+            accumulate(acc, lo, min(lo + run, e1), col_idx, vals, p, m, col0, lane);
 #pragma unroll
-        for (int q = 0; q < kColsPerThread; ++q)
-            if (q < w) out[q] = acc[q];
+            for (int s = 0; s < kSlots; ++s)
+                store_shared(&s_part[warp][(s * 32 + lane) * kWidth], acc[s]);
+            __syncthreads();
+            float* out = c + (row0 + r) * m + panel * kPanel;
+            for (int j = threadIdx.x; j < kPanel; j += kThreads) {
+                if (panel * kPanel + j >= m) break;
+                float sum = s_part[0][j];
+#pragma unroll
+                for (int w = 1; w < kWarps; ++w) sum += s_part[w][j];
+                __stcs(out + j, sum);
+            }
+            __syncthreads();
+        }
     }
 }
 
@@ -88,13 +212,39 @@ bool aligned16(const void* ptr) {
     return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
+template <typename T, int kSlots>
+cudaError_t launch(const int32_t* rp, const int32_t* ci, const float* vv, const float* pp,
+                   float* cc, int64_t n_rows, int64_t m, cudaStream_t s) {
+    constexpr int64_t kPanel = kSlots * 32 * (sizeof(T) / sizeof(float));
+    const int64_t row_blocks = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    const int64_t n_blocks = row_blocks * ((m + kPanel - 1) / kPanel);
+    const auto grid = static_cast<unsigned>(n_blocks < INT32_MAX ? n_blocks : INT32_MAX);
+    spmm_dense_acc_kernel<T, kSlots><<<grid, kThreads, 0, s>>>(rp, ci, vv, pp, cc, n_rows, m,
+                                                               row_blocks, n_blocks);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest m the launch takes: gridDim.y is capped at 65,535 chunks.
+// Largest m the wrapper passes (the launch itself takes any m: its grid
+// strides over the blocks).
 int64_t spmm_dense_acc_max_cols() {
-    return static_cast<int64_t>(65535) * kColsPerBlock;
+    return static_cast<int64_t>(65535) * kMaxPanel;
+}
+
+// The panel width W of a launch with n_rows rows of A and m columns of P
+// on the current device: the widest power of two from 128 to 1,024 with
+// n_rows * W * 4 B within half of the L2, and no wider than m needs.
+int64_t spmm_dense_acc_panel_cols(int64_t n_rows, int64_t m) {
+    int dev = 0, l2 = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    int64_t w = kMaxPanel;
+    while (w > kMinPanel && n_rows * w * 4 > static_cast<int64_t>(l2) / 2) w /= 2;
+    while (w > kMinPanel && w / 2 >= m) w /= 2;
+    return w;
 }
 
 // Launches C = A x P on `stream` and returns cudaGetLastError() (0 = launched).
@@ -102,19 +252,31 @@ int64_t spmm_dense_acc_max_cols() {
 int spmm_dense_acc_f32(const void* row_ptr, const void* col_idx,
                        const void* vals, const void* p, void* c,
                        int64_t n_rows, int64_t m, void* stream) {
-    const dim3 grid(static_cast<unsigned>(n_rows),
-                    static_cast<unsigned>((m + kColsPerBlock - 1) / kColsPerBlock));
+    if (n_rows <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* rp = static_cast<const int32_t*>(row_ptr);
     const auto* ci = static_cast<const int32_t*>(col_idx);
     const auto* vv = static_cast<const float*>(vals);
     const auto* pp = static_cast<const float*>(p);
     auto* cc = static_cast<float*>(c);
-    if (m % kColsPerThread == 0 && aligned16(p) && aligned16(c))
-        spmm_dense_acc_kernel<true><<<grid, kThreads, 0, s>>>(rp, ci, vv, pp, cc, m);
-    else
-        spmm_dense_acc_kernel<false><<<grid, kThreads, 0, s>>>(rp, ci, vv, pp, cc, m);
-    return static_cast<int>(cudaGetLastError());
+    const int64_t w = spmm_dense_acc_panel_cols(n_rows, m);
+    cudaError_t err;
+    if (m % 4 == 0 && aligned16(p) && aligned16(c)) {
+        switch (w) {
+            case 128: err = launch<float4, 1>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+            case 256: err = launch<float4, 2>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+            case 512: err = launch<float4, 4>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+            default: err = launch<float4, 8>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+        }
+    } else {
+        switch (w) {
+            case 128: err = launch<float, 4>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+            case 256: err = launch<float, 8>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+            case 512: err = launch<float, 16>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+            default: err = launch<float, 32>(rp, ci, vv, pp, cc, n_rows, m, s); break;
+        }
+    }
+    return static_cast<int>(err);
 }
 
 const char* spmm_error_string(int code) {
