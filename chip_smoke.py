@@ -30,9 +30,14 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    below the total; blocks of 0-3 survivors, out_cap not a multiple of 4,
    streams as views at odd element offsets), then on the real survivor
    streams of the mixed chain's A^4 slab and of the ER 27,000 x 32 slab;
-   the dense-accumulator kernel also at the general-SpGEMM sweep's shape
-   (the ER 27,000 x 32 operand times its densified self, a 256-row slice
-   against the plain version and the full product's rows against it).
+   the dense-accumulator kernel also at the general-SpGEMM sweep's shapes
+   (the ER 27,000 x 32, power-law 27,000 and ER 27,000 x 2 operands, each
+   times its densified self: a 256-row slice, the power-law one around its
+   longest row, against the plain version and the full product's rows
+   against it), with its column panel's width, each full product's gather
+   traffic (nnz x m x 4 B) and the rate it implies, and once the card's L2
+   re-read rate (an index_select from an L2-resident panel; a reference
+   for the gather floor, not a bound).
    Beside each kernel: its bound (the larger of its compulsory bytes at
    3.35 TB/s and its operations at the H100 SXM data sheet's rate: fp32 at
    67 TFLOP/s, SDD's 3xTF32 products at 495 TFLOP/s with its fp32 bound
@@ -248,7 +253,8 @@ def main() -> None:
         run_chain_band, run_chain_dense, run_chain_dense_acc, run_chain_escb,
         run_chain_foldband, run_chain_mixed, run_chain_rowcat, sparse_operand,
         tuple_to_f32_dense, unfold_band, verify_final_values)
-    from sparsetpu_torch.bench import coalesce_sources, sortmerge_phases, spgemm_bench
+    from sparsetpu_torch.bench import (coalesce_sources, sortmerge_phases, spgemm_bench,
+                                       spmm_sources)
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
     from sparsetpu_torch.kernels import (_build, bandmm, bandplanes, blocksparse, coalesce,
@@ -428,7 +434,15 @@ def main() -> None:
         full_step_ms=time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 5),
         full_bound_ms=full_b_ms,
         full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 5),
+        panel_cols=int(lib.spmm_dense_acc_panel_cols(n30, n30)),
+        full_gather_gb=spmm_sources.gather_bytes(op, n30) / 1e9,
         timed_on=f"30^3 operand rows 0..{SLICE_ROWS} x P ({n30}, {n30})")
+    t = timing["spmm_dense_acc"]
+    t["full_gather_tb_per_s"] = t["full_gather_gb"] / t["full_step_ms"]
+    print(f"[3] spmm_dense_acc on the full 30^3 step: kernel {t['full_step_ms']:.4f} ms "
+          f"(panels of {t['panel_cols']} columns), bound {full_b_ms:.4f} ms, torch.sparse.mm "
+          f"{t['full_library_ms']:.4f} ms; gathers {t['full_gather_gb']:.2f} GB of P rows, "
+          f"{t['full_gather_tb_per_s']:.2f} TB/s", flush=True)
     del full, sliced, want
 
     # group-dot at R = 40, G = 32 on the same P
@@ -661,45 +675,73 @@ def main() -> None:
           flush=True)
     del slab
 
-    # dense-acc at the general-SpGEMM sweep's shape: the ER 27,000 x 32
-    # operand (plan_dense_acc) times its densified self, as dense_acc_numeric
-    # runs it, rows 0..SLICE_ROWS against the plain version
-    op = denseacc.plan_dense_acc(a_er)
-    op_slice = spmm.row_slice(op, 0, SLICE_ROWS)
-    p = tuple_to_f32_dense(a_er)
-    full = spmm.spmm_dense_acc(op, p)
-    sliced = spmm.spmm_dense_acc(op_slice, p)
-    want = spmm.spmm_dense_acc_reference(op_slice, p)
-    err["spmm_dense_acc"] = max(err["spmm_dense_acc"],
-                                compare("spmm_dense_acc ER 27000x32 rows", full[:SLICE_ROWS],
-                                        want),
-                                compare("spmm_dense_acc ER 27000x32 slice", sliced, want))
-    lib_slice = torch.sparse_csr_tensor(op_slice.row_ptr, op_slice.col_idx, op_slice.vals,
-                                        size=(SLICE_ROWS, er_n))
-    lib_full = torch.sparse_csr_tensor(op.row_ptr, op.col_idx, op.vals, size=(er_n, er_n))
+    # dense-acc at the general-SpGEMM sweep's shapes: an operand
+    # (plan_dense_acc) times its densified self, as dense_acc_numeric runs
+    # it; rows [lo, hi) against the plain version
+    def sweep_dense_acc(label, op, p, lo, hi):
+        n = op.n_rows
+        part = spmm.row_slice(op, lo, hi)
+        full = spmm.spmm_dense_acc(op, p)
+        sliced = spmm.spmm_dense_acc(part, p)
+        want = spmm.spmm_dense_acc_reference(part, p)
+        err["spmm_dense_acc"] = max(
+            err["spmm_dense_acc"], compare(f"spmm_dense_acc {label} rows", full[lo:hi], want),
+            compare(f"spmm_dense_acc {label} slice", sliced, want))
+        lib_slice = torch.sparse_csr_tensor(part.row_ptr, part.col_idx, part.vals,
+                                            size=(hi - lo, n))
+        lib_full = torch.sparse_csr_tensor(op.row_ptr, op.col_idx, op.vals, size=(n, n))
 
-    def er_bound(o, n_rows):
-        return bound(csr_spmm_bytes(o.row_ptr, o.col_idx, n_rows, er_n, er_n,
-                                    o.vals.numel() * 4), 2.0 * o.col_idx.numel() * er_n)
+        def own_bound(o, n_rows):
+            return bound(csr_spmm_bytes(o.row_ptr, o.col_idx, n_rows, n, n,
+                                        o.vals.numel() * 4), 2.0 * o.col_idx.numel() * n)
 
-    b_ms, b_by = er_bound(op_slice, SLICE_ROWS)
-    er_t = dict(ms=time_ms(lambda: spmm.spmm_dense_acc(op_slice, p, out=sliced), 20),
-                plain_ms=time_ms(lambda: spmm.spmm_dense_acc_reference(op_slice, p), 3),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 10),
-                full_step_ms=time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 3),
-                full_bound_ms=er_bound(op, er_n)[0],
-                full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 3),
-                timed_on=f"ER 27,000 x 32 operand ({op.col_idx.numel()} entries) rows "
-                         f"0..{SLICE_ROWS} x its dense self ({er_n}, {er_n})")
-    timing["spmm_dense_acc"].update({f"er_{k}": v for k, v in er_t.items()})
-    print(f"[3] spmm_dense_acc on {er_t['timed_on']}: kernel == plain (exact); slice: kernel "
-          f"{er_t['ms']:.4f} ms, plain {er_t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), library {er_t['library_ms']:.4f} ms; full operand kernel "
-          f"{er_t['full_step_ms']:.4f} ms, bound {er_t['full_bound_ms']:.4f} ms, library "
-          f"{er_t['full_library_ms']:.4f} ms", flush=True)
-    del op, op_slice, p, full, sliced, want, lib_slice, lib_full
+        b_ms, b_by = own_bound(part, hi - lo)
+        t = dict(ms=time_ms(lambda: spmm.spmm_dense_acc(part, p, out=sliced), 20),
+                 plain_ms=time_ms(lambda: spmm.spmm_dense_acc_reference(part, p), 3),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(lambda: torch.sparse.mm(lib_slice, p), 10),
+                 full_step_ms=time_ms(lambda: spmm.spmm_dense_acc(op, p, out=full), 3),
+                 full_bound_ms=own_bound(op, n)[0],
+                 full_library_ms=time_ms(lambda: torch.sparse.mm(lib_full, p), 3),
+                 panel_cols=int(lib.spmm_dense_acc_panel_cols(n, n)),
+                 full_gather_gb=spmm_sources.gather_bytes(op, n) / 1e9,
+                 timed_on=f"{label} operand ({op.col_idx.numel()} entries) rows {lo}..{hi} "
+                          f"x its dense self ({n}, {n})")
+        t["full_gather_tb_per_s"] = t["full_gather_gb"] / t["full_step_ms"]
+        t["full_library_gather_tb_per_s"] = t["full_gather_gb"] / t["full_library_ms"]
+        print(f"[3] spmm_dense_acc on {t['timed_on']}: kernel == plain (exact); slice: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"library {t['library_ms']:.4f} ms; full operand kernel {t['full_step_ms']:.4f} "
+              f"ms (panels of {t['panel_cols']} columns), bound {t['full_bound_ms']:.4f} ms, "
+              f"library {t['full_library_ms']:.4f} ms; gathers {t['full_gather_gb']:.2f} GB "
+              f"of P rows: kernel {t['full_gather_tb_per_s']:.2f} TB/s, library "
+              f"{t['full_library_gather_tb_per_s']:.2f} TB/s", flush=True)
+        return t
+
+    op, p = denseacc.plan_dense_acc(a_er), tuple_to_f32_dense(a_er)
+    er_t = sweep_dense_acc("ER 27,000 x 32", op, p, 0, SLICE_ROWS)
+    l2 = spmm_sources.l2_gather_rate(p)
+    print(f"[3] L2 re-read rate (a reference for the gather floor, not a bound), random rows "
+          f"of a {l2['panel_bytes'] / 1e6:.1f} MB panel of P: " + "; ".join(
+              f"{name} {r['gathered_bytes'] / 1e6:.1f} MB in {r['ms']:.4f} ms, "
+              f"{r['tb_per_s']:.2f} TB/s" for name, r in l2.items() if name != "panel_bytes"),
+          flush=True)
+    del op, p
     torch.cuda.empty_cache()
+    sweep_t = {}
+    for key, label, case, epn in (("pl", "power-law 27,000", "powerlaw", 8),
+                                  ("er2", "ER 27,000 x 2", "er", 2)):
+        op, p = spmm_sources.sweep_operand(case, er_n, epn, dev)
+        # the slice holds the longest row (a hub of the power-law graph)
+        top = int(torch.diff(op.row_ptr).argmax())
+        lo = max(0, min(top - SLICE_ROWS // 2, op.n_rows - SLICE_ROWS))
+        sweep_t[key] = sweep_dense_acc(label, op, p, lo, lo + SLICE_ROWS)
+        del op, p
+        torch.cuda.empty_cache()
+    timing["spmm_dense_acc"].update({f"er_{k}": v for k, v in er_t.items()})
+    for key, t in sweep_t.items():
+        timing["spmm_dense_acc"].update({f"{key}_{k}": v for k, v in t.items()})
+    timing["spmm_dense_acc"]["l2_gather"] = l2
 
     # coalesce: every stream type, K = 1..4, empty and full blocks, one
     # block, L = 1..2^20, out_cap above and below the total

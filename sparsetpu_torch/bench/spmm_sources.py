@@ -97,21 +97,32 @@ def plain_product(op: spmm.SparseOperand, p: torch.Tensor) -> torch.Tensor:
 
 
 def l2_gather_rate(p: torch.Tensor, width: int = 128, rows: int = 32768,
-                   reps: int = 200) -> dict:
-    """The card's L2 re-read rate, as a reference for the gather floor:
-    ``index_select`` of ``rows`` random rows (seed 0) of a (n_p, width)
-    panel of P, into an output written in place; the panel (13.8 MB at
-    n_p = 27,000) and the output (16.8 MB) both stay in L2.  Returns the
-    panel and gathered bytes, the ms of one call and the gathered bytes'
-    rate in TB/s."""
+                   bag: int = 32, reps: int = 50) -> dict:
+    """The card's L2 re-read rate, as a reference for the gather floor (not a
+    bound), from a (n_p, width) panel of P that stays in L2 (13.8 MB at
+    n_p = 27,000), random rows (seed 0):
+
+    - ``index_select`` of ``rows`` rows into an output written in place
+      (16.8 MB, also L2-resident);
+    - ``embedding_bag`` summing ``bag`` x ``rows`` rows in bags of ``bag``
+      (537 MB of gathers, a 1/``bag`` output), the gather-and-add of a
+      dense accumulator's row.
+
+    Returns the panel bytes and, for each, the gathered bytes, the ms of one
+    call and the gathered bytes' rate in TB/s."""
     panel = p[:, :width].contiguous()
     gen = torch.Generator(device=p.device).manual_seed(0)
-    idx = torch.randint(0, p.shape[0], (rows,), generator=gen, device=p.device)
+    idx = torch.randint(0, p.shape[0], (rows * bag,), generator=gen, device=p.device)
     out = torch.empty(rows, width, dtype=p.dtype, device=p.device)
-    ms = time_ms(lambda: torch.index_select(panel, 0, idx, out=out), reps)
-    gathered = rows * width * 4
-    return dict(panel_bytes=panel.numel() * 4, gathered_bytes=gathered, ms=ms,
-                tb_per_s=gathered / ms / 1e9)
+    bags = idx.view(rows, bag)
+    calls = {"index_select": (rows, lambda: torch.index_select(panel, 0, idx[:rows], out=out)),
+             "embedding_bag": (rows * bag, lambda: torch.nn.functional.embedding_bag(
+                 bags, panel, mode="sum"))}
+    res = {"panel_bytes": panel.numel() * 4}
+    for name, (n, fn) in calls.items():
+        ms = time_ms(fn, reps)
+        res[name] = dict(gathered_bytes=n * width * 4, ms=ms, tb_per_s=n * width * 4 / ms / 1e9)
+    return res
 
 
 def build_sources(sources: Sequence[str], out_dir: str) -> dict:

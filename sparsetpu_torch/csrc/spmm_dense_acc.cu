@@ -14,35 +14,40 @@
 // What bounds it on the card.  Every entry of A reads m floats of one P
 // row, so a call gathers nnz(A) * m * 4 B: 8.74 GB for a step of the
 // thinned 30^3 torus chain (3 entries a row), 93.3 GB for the ER 27,000 x 32
-// operand times its dense self (32 a row), against compulsory bytes (each P
-// row and C once) of 5.8 GB.  Those gathers can only come at the rate of the
-// 50 MB L2 if the P rows they re-read are still there, and the rows of a
-// random graph reference P rows all over: a whole P (2.9 GB at n = 27,000)
-// never fits.  So the design cuts the columns into panels:
+// operand times its dense self (32 a row), against compulsory bytes (A,
+// each P row and C once) of 5.8 GB.  The gathers come at the L2's rate only
+// if the P rows they re-read are still there, and the rows of a random
+// graph reference P rows all over: a whole P (2.9 GB at n = 27,000) never
+// fits.  So the design cuts the columns into panels:
 //   - a launch works on panels of W columns, W a power of two from 128 to
 //     1,024 (whole 512-byte warp lines), the widest with n x W x 4 B within
-//     half of the device's L2 (cudaDevAttrL2CacheSize), and no wider than m
+//     3/5 of the device's L2 (cudaDevAttrL2CacheSize), and no wider than m
 //     needs.  P's row count is not passed in, so A's row count n_rows stands
 //     for it: every caller's A is square, and a row slice of A only takes a
-//     wider panel than its P would fit (W = 128 at n = 27,000);
+//     wider panel than its P would fit.  At n = 27,000 W = 256 (27.6 MB):
+//     W = 128 keeps more of a random graph's re-reads in L2, but its 512-byte
+//     bursts cost the torus, whose re-reads are local, more device-memory
+//     time than the L2 saves (PERF.md);
 //   - blocks go panel-major (a 1-D grid, panel = block / row blocks), so all
 //     rows of one panel run before the next and re-read that panel's P
-//     columns from L2: P comes from device memory about once;
-//   - a block of 8 warps takes 32 rows of one panel, a warp a row at a time
-//     (the next free row from a shared counter, so short and long rows
-//     balance across the warps); a warp stages 32 of its row's (col, val)
-//     entries with one coalesced load and hands them out by __shfl_sync,
-//     and each lane keeps 8 independent 16-byte P loads in flight (float4
-//     where m % 4 == 0 and P and C are 16-byte aligned; else scalar loads
-//     with the ragged columns masked), then adds them in entry order;
-//   - a row of more than 128 entries is split across the block's 8 warps in
-//     equal runs of entries; the 8 partial rows meet in shared memory and
-//     are added in warp order.  Every output element is thus summed in a
-//     fixed order (CSR order within a thread, then warp order), with no
-//     atomics on floats: the result is the same in every run, and exact on
-//     integer values below 2^24, where every order is exact;
-//   - C is written once, by streaming stores (no memset); addresses are
-//     int64 (col * m + j overflows int32 once n > 46,340).
+//     columns from L2: P comes from device memory about once.  Blocks are
+//     small (32 rows), so the blocks in flight span under one panel;
+//   - a block's 8 warps split its rows' entries into 8 equal runs, in CSR
+//     order; a warp stages 32 (col, val) entries with one coalesced load,
+//     hands them out by __shfl_sync, and keeps 8 P floats a lane in flight
+//     (float4 loads where m % 4 == 0 and P and C are 16-byte aligned, else
+//     scalar loads with the ragged columns masked), running ahead across
+//     row boundaries: rows of 3 entries keep as many loads in flight as
+//     rows of 700, and a long row is shared by every warp whose run it
+//     covers instead of holding one warp while the others idle;
+//   - each output element is summed in a fixed order, with no atomics on
+//     floats: in CSR order within a warp's run, then, for a row that spans
+//     runs, the runs' partial rows (met in shared memory) in warp order.
+//     The result is the same in every run, and exact on integer values
+//     below 2^24, where every order is exact;
+//   - C is written once, by streaming stores (no memset), and A's arrays are
+//     read by streaming loads, leaving L2 to P; addresses are int64
+//     (col * m + j overflows int32 once n > 46,340).
 // The TPU kernel's DMA ring over P rows (spmm_pallas.py:128-158) was its
 // answer to the same latency; here the loads in flight across the warps are.
 // Its padded branch-free entries and row-plane layout are TPU artifacts and
@@ -56,11 +61,10 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 32;  // one warp's ballot covers the block's rows
-constexpr int kLongRow = 128;      // entries above which the block splits a row
+constexpr int kRowsPerBlock = 32;
 constexpr int kMinPanel = 128;     // columns: one float4 a lane of a warp
 constexpr int kMaxPanel = 1024;
-constexpr int kInFlight = 32;      // P floats a lane has in flight
+constexpr int kInFlight = 8;       // P floats a lane has in flight
 constexpr unsigned kFull = 0xffffffffu;
 
 // A lane's unit of P: a float4 (4 columns) or a float (1 column).
@@ -85,51 +89,27 @@ __device__ __forceinline__ void store_shared(float* ptr, const float4& x) {
     *reinterpret_cast<float4*>(ptr) = x;
 }
 __device__ __forceinline__ void store_shared(float* ptr, float x) { *ptr = x; }
+__device__ __forceinline__ void load_shared(float4& x, const float* ptr) {
+    x = *reinterpret_cast<const float4*>(ptr);
+}
+__device__ __forceinline__ void load_shared(float& x, const float* ptr) { x = *ptr; }
+__device__ __forceinline__ void add_into(float4& acc, const float4& x) {
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+}
+__device__ __forceinline__ void add_into(float& acc, float x) { acc += x; }
 
-// acc[s] = sum over entries e in [e_begin, e_end), in order, of
-// val[e] * P[col[e], j .. j + width) with j = col0 + s * 32 * width: a lane's
-// share of one row of one panel (slots at or past m stay 0).
+// Stores a lane's slots of one row of one panel into C's row `out`.
 template <typename T, int kSlots>
-__device__ __forceinline__ void accumulate(T (&acc)[kSlots], int e_begin, int e_end,
-                                           const int32_t* __restrict__ col_idx,
-                                           const float* __restrict__ vals,
-                                           const float* __restrict__ p, int64_t m,
-                                           int64_t col0, int lane) {
+__device__ __forceinline__ void store_row(float* out, const T (&acc)[kSlots], int64_t col0,
+                                          int64_t m) {
     constexpr int kWidth = sizeof(T) / sizeof(float);
-    constexpr int kUnroll = kInFlight / (kSlots * kWidth) > 0 ? kInFlight / (kSlots * kWidth) : 1;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) zero(acc[s]);
-    for (int base = e_begin; base < e_end; base += 32) {
-        const int cnt = min(32, e_end - base);
-        int my_col = 0;
-        float my_val = 0.f;
-        if (lane < cnt) {
-            my_col = __ldg(col_idx + base + lane);
-            my_val = __ldg(vals + base + lane);
-        }
-        for (int k = 0; k < cnt; k += kUnroll) {
-            T x[kUnroll][kSlots];
-            float v[kUnroll];
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u) {
-                const int src = (k + u) & 31;
-                const float* row = p + static_cast<int64_t>(__shfl_sync(kFull, my_col, src)) * m;
-                v[u] = __shfl_sync(kFull, my_val, src);
-#pragma unroll
-                for (int s = 0; s < kSlots; ++s) {
-                    const int64_t j = col0 + s * 32 * kWidth;
-                    if (k + u < cnt && j < m) load(x[u][s], row + j);
-                    else zero(x[u][s]);
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u) {
-                if (k + u < cnt) {
-#pragma unroll
-                    for (int s = 0; s < kSlots; ++s) fma_into(acc[s], v[u], x[u][s]);
-                }
-            }
-        }
+    for (int s = 0; s < kSlots; ++s) {
+        const int64_t j = col0 + s * 32 * kWidth;
+        if (j < m) store(out + j, acc[s]);
     }
 }
 
@@ -145,8 +125,9 @@ spmm_dense_acc_kernel(const int32_t* __restrict__ row_ptr,
                       int64_t row_blocks, int64_t n_blocks) {
     constexpr int kWidth = sizeof(T) / sizeof(float);
     constexpr int kPanel = kSlots * 32 * kWidth;
+    constexpr int kUnroll = kInFlight / (kSlots * kWidth) > 0 ? kInFlight / (kSlots * kWidth) : 1;
     __shared__ int32_t s_ptr[kRowsPerBlock + 1];
-    __shared__ int s_next;
+    __shared__ int s_cont[kWarps];  // the row whose partial warp w left in s_part[w], or -1
     __shared__ __align__(16) float s_part[kWarps][kPanel];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
@@ -158,52 +139,101 @@ spmm_dense_acc_kernel(const int32_t* __restrict__ row_ptr,
         // this lane's first column; its slot s starts s * 32 * kWidth later
         // (with float4, m % 4 == 0 keeps a slot's four columns inside m)
         const int64_t col0 = panel * kPanel + lane * kWidth;
+        float* const c_rows = c + row0 * m;
         __syncthreads();  // the previous row block is done with shared memory
-        if (threadIdx.x <= rows) s_ptr[threadIdx.x] = row_ptr[row0 + threadIdx.x];
-        if (threadIdx.x == 0) s_next = 0;
+        for (int t = threadIdx.x; t <= rows; t += kThreads) s_ptr[t] = __ldcs(row_ptr + row0 + t);
+        if (lane == 0) s_cont[warp] = -1;
         __syncthreads();
-        const int len = lane < rows ? s_ptr[lane + 1] - s_ptr[lane] : 0;
-        const unsigned long_rows = __ballot_sync(kFull, len > kLongRow);
 
-        // rows of up to kLongRow entries: one warp each, the next free one
-        for (;;) {
-            int r = 0;
-            if (lane == 0) r = atomicAdd(&s_next, 1);
-            r = __shfl_sync(kFull, r, 0);
-            if (r >= rows) break;
-            if ((long_rows >> r) & 1u) continue;
-            T acc[kSlots];
-            accumulate(acc, s_ptr[r], s_ptr[r + 1], col_idx, vals, p, m, col0, lane);
-            float* out = c + (row0 + r) * m;
+        T acc[kSlots];
 #pragma unroll
-            for (int s = 0; s < kSlots; ++s) {
-                const int64_t j = col0 + s * 32 * kWidth;
-                if (j < m) store(out + j, acc[s]);
+        for (int s = 0; s < kSlots; ++s) zero(acc[s]);
+        for (int r = warp; r < rows; r += kWarps)  // empty rows: zeros
+            if (s_ptr[r + 1] == s_ptr[r]) store_row(c_rows + r * m, acc, col0, m);
+
+        // warp w walks the w-th of 8 equal runs of the block's entries in
+        // CSR order; loads run ahead across row boundaries
+        const int e_all = s_ptr[rows];
+        const int run = (e_all - s_ptr[0] + kWarps - 1) / kWarps;
+        const int lo = min(s_ptr[0] + warp * run, e_all);
+        const int hi = min(lo + run, e_all);
+        // the block row of entry e: the last r < rows with s_ptr[r] <= e
+        const auto row_of = [&](int e) {
+            int r = 0;
+#pragma unroll
+            for (int step = kRowsPerBlock / 2; step > 0; step >>= 1)
+                if (r + step < rows && s_ptr[r + step] <= e) r += step;
+            return r;
+        };
+        int cur = lo < hi ? row_of(lo) : 0;  // the row acc sums
+        bool cont = s_ptr[cur] < lo;         // it began in an earlier warp's run
+        int next = s_ptr[cur + 1];           // the entry that ends it
+        // a finished row goes to C, or, begun in an earlier warp, to s_part
+        auto finish = [&](int r, bool partial) {
+            if (partial) {
+#pragma unroll
+                for (int s = 0; s < kSlots; ++s)
+                    store_shared(&s_part[warp][(s * 32 + lane) * kWidth], acc[s]);
+                if (lane == 0) s_cont[warp] = r;
+            } else {
+                store_row(c_rows + r * m, acc, col0, m);
+            }
+        };
+        for (int base = lo; base < hi; base += 32) {
+            const int cnt = min(32, hi - base);
+            int my_col = 0;
+            float my_val = 0.f;
+            if (lane < cnt) {
+                my_col = __ldcs(col_idx + base + lane);
+                my_val = __ldcs(vals + base + lane);
+            }
+            for (int k = 0; k < cnt; k += kUnroll) {
+                T x[kUnroll][kSlots];
+                float v[kUnroll];
+#pragma unroll
+                for (int u = 0; u < kUnroll; ++u) {
+                    const int src = (k + u) & 31;
+                    const float* row = p + static_cast<int64_t>(__shfl_sync(kFull, my_col, src)) * m;
+                    v[u] = __shfl_sync(kFull, my_val, src);
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) {
+                        const int64_t j = col0 + s * 32 * kWidth;
+                        if (k + u < cnt && j < m) load(x[u][s], row + j);
+                        else zero(x[u][s]);
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < kUnroll; ++u) {
+                    if (k + u < cnt) {
+                        if (base + k + u == next) {  // a new row: skip the empty ones
+                            finish(cur, cont);
+                            do ++cur; while (s_ptr[cur + 1] == next);
+                            next = s_ptr[cur + 1];
+                            cont = false;
+#pragma unroll
+                            for (int s = 0; s < kSlots; ++s) zero(acc[s]);
+                        }
+#pragma unroll
+                        for (int s = 0; s < kSlots; ++s) fma_into(acc[s], v[u], x[u][s]);
+                    }
+                }
             }
         }
-
-        // longer rows: warp w sums the w-th of 8 equal runs of entries; the
-        // partial rows are added in warp order
-        for (unsigned rest = long_rows; rest != 0u; rest &= rest - 1u) {
-            const int r = __ffs(rest) - 1;
-            const int e0 = s_ptr[r], e1 = s_ptr[r + 1];
-            const int run = (e1 - e0 + kWarps - 1) / kWarps;
-            const int lo = min(e0 + warp * run, e1);
-            T acc[kSlots];
-            accumulate(acc, lo, min(lo + run, e1), col_idx, vals, p, m, col0, lane);
+        // the run's last row: finished here, or continued by later warps,
+        // whose partials its first warp adds in warp order
+        const bool open = lo < hi && next > hi;
+        if (lo < hi && (cont || !open)) finish(cur, cont);
+        __syncthreads();
+        if (open && !cont) {
+            for (int w = warp + 1; w < kWarps && s_cont[w] == cur; ++w) {
 #pragma unroll
-            for (int s = 0; s < kSlots; ++s)
-                store_shared(&s_part[warp][(s * 32 + lane) * kWidth], acc[s]);
-            __syncthreads();
-            float* out = c + (row0 + r) * m + panel * kPanel;
-            for (int j = threadIdx.x; j < kPanel; j += kThreads) {
-                if (panel * kPanel + j >= m) break;
-                float sum = s_part[0][j];
-#pragma unroll
-                for (int w = 1; w < kWarps; ++w) sum += s_part[w][j];
-                __stcs(out + j, sum);
+                for (int s = 0; s < kSlots; ++s) {
+                    T part;
+                    load_shared(part, &s_part[w][(s * 32 + lane) * kWidth]);
+                    add_into(acc[s], part);
+                }
             }
-            __syncthreads();
+            store_row(c_rows + cur * m, acc, col0, m);
         }
     }
 }
@@ -236,13 +266,13 @@ int64_t spmm_dense_acc_max_cols() {
 
 // The panel width W of a launch with n_rows rows of A and m columns of P
 // on the current device: the widest power of two from 128 to 1,024 with
-// n_rows * W * 4 B within half of the L2, and no wider than m needs.
+// n_rows * W * 4 B within 3/5 of the L2, and no wider than m needs.
 int64_t spmm_dense_acc_panel_cols(int64_t n_rows, int64_t m) {
     int dev = 0, l2 = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
     int64_t w = kMaxPanel;
-    while (w > kMinPanel && n_rows * w * 4 > static_cast<int64_t>(l2) / 2) w /= 2;
+    while (w > kMinPanel && n_rows * w * 4 > static_cast<int64_t>(l2) * 3 / 5) w /= 2;
     while (w > kMinPanel && w / 2 >= m) w /= 2;
     return w;
 }

@@ -101,6 +101,8 @@ def load() -> ctypes.CDLL:
                    lib.sortmerge_rows_max_l):
             fn.argtypes = []
             fn.restype = i64
+        lib.spmm_dense_acc_panel_cols.argtypes = [i64, i64]
+        lib.spmm_dense_acc_panel_cols.restype = i64
         lib.spmm_error_string.argtypes = [i32]
         lib.spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
