@@ -81,6 +81,21 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    graph (its route printed, its product against the oracle), and once
    forced to denseacc_tiled on ER 27,000 x 32 (4 panels of 8,192, two
    launches a panel).
+   Then the real-graph study (``bench/real_graphs.py``) on the power-law
+   substitutes of cora, nell and ogbn-arxiv at their published sizes: the
+   pattern engine's int8 product against a float64 reference (panels with
+   an edge inside the padding) and one panel of nell's 65,792^2 frame timed
+   with the second operand column-major and row-major; per graph the
+   structure report (RCM but on ogbn), its components equal to scipy's
+   partition, the chain (A^2..A^4; ogbn A^2 only) at --iters 1 with every
+   step's nnz equal to reports/real_graphs_r5.csv's and A^2 to the oracle's,
+   each step's route, time, idle share and peak memory, at least one
+   coalesce launch per graph and one dense-acc launch on nell (A^4);
+   cora's band hybrid equal to spgemm_auto's CSR value for value; on cora
+   and nell reachability and the diameter on the int8 engine, reachability's
+   nnz equal to sum |C|^2 over the components of two or more nodes (cora:
+   7,333,264 at k = 11) and the diameter equal to the host's exact BFS
+   (cora: 10), with seconds, peak memory and the int8 rate.
    Each path runs under torch.profiler, and every kernel's device time is
    summed over it, warm-ups and repetitions included; one pass of each
    path (one untimed call of each step: a chain's steps once, one product a
@@ -88,7 +103,8 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    and pass device time;
 5. JSON lines (the kernels line: each kernel's launches and device time
    summed over its path and over one pass, its times, bound and library
-   call), the card line, and the contract line
+   call, and for dense-acc, sort-merge and coalesce the real-graph path's
+   launches and first-call device time), the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -112,6 +128,12 @@ DIMS30 = (30, 30, 30)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # fp32 outside the tensor cores, data sheet
 TF32_FLOPS_PER_S = 495e12  # TF32 on the tensor cores, dense, data sheet
+INT8_TOPS = 1979.0         # int8 on the tensor cores, dense, TOP/s, data sheet
+# nnz of A^2..A^4 of the power-law substitutes (reports/real_graphs_r5.csv);
+# ogbn_arxiv_pl runs A^2 only
+REAL_NNZ = {"cora_pl": [131_360, 899_722, 3_407_150],
+            "nell_pl": [4_030_143, 42_457_579, 321_409_501],
+            "ogbn_arxiv_pl": [32_071_529]}
 SPGEMM_ALGOS = ("esc", "escb", "rowcat", "rowcat_pallas", "denseacc", "densedense",
                 "densedense_tiled", "bcoo")
 # the only DNF rows JAX's own rule gives: densedense_fits(n, n, n) fails at 27k
@@ -126,6 +148,12 @@ SPGEMM_CASES = {
     ("er", 27000, 2): 108_807, ("er", 27000, 8): 1_725_082, ("er", 27000, 32): 27_099_771,
     ("powerlaw", 27000, 8): 17_238_434,
 }
+
+
+def same_partition(a, b) -> bool:
+    """Two labellings describe the same partition of the nodes."""
+    pairs = set(zip(np.asarray(a).tolist(), np.asarray(b).tolist()))
+    return len(pairs) == len(set(np.asarray(a).tolist())) == len(set(np.asarray(b).tolist()))
 
 
 def check(cond, msg):
@@ -239,6 +267,127 @@ def sdd_library_mask(qi, ki, m: int, n: int):
     crow = torch.searchsorted(key // n, torch.arange(m + 1, device=dev))
     return torch.sparse_csr_tensor(crow, key % n, torch.zeros(key.numel(), device=dev),
                                    size=(m, n))
+
+
+def real_graph_phase(dev, counters, reset_counts):
+    """Phase 4's real-graph study (bench/real_graphs.py) on the card; returns
+    (per-graph results, the int8 panel rates, the path's kernel launches,
+    each kernel's device ms summed over the steps' first calls).  Raises on
+    any failed check."""
+    import scipy.sparse as ssp
+    from scipy.sparse import csgraph
+
+    from sparsetpu_torch import U64, SparseCSR
+    from sparsetpu_torch.bench import real_graphs
+    from sparsetpu_torch.graphs import algos as graph_algos, patterns
+
+    # the pattern engine's int8 product first, then per graph: cora_pl and
+    # nell_pl (the structure report with RCM, A^2..A^4 at --iters 1,
+    # reachability and the diameter), cora_pl's band hybrid, ogbn_arxiv_pl
+    # (the structure report without RCM, A^2)
+    x = (torch.rand(300, 300, device=dev) < 0.02).to(torch.int8)
+    frame = torch.zeros(384, 384, dtype=torch.int8, device=dev)
+    frame[:300, :300] = x
+    want = ((frame.double() @ frame.double()) > 0).to(torch.int8)
+    for rows in (160, 384):  # a panel edge inside the padding, and one panel
+        check(torch.equal(patterns.matmul(frame, frame, panel_rows=rows), want),
+              f"int8 pattern product (panels of {rows} rows) != the float64 reference")
+    side = patterns.frame_side(65755)
+    big = torch.zeros(side, side, dtype=torch.int8, device=dev)
+    big.view(-1)[torch.randint(0, side * side, (1 << 22,), device=dev)] = 1
+    rows = patterns._panel_rows(side)
+    int8_rate = {}
+    for layout, y in (("column-major", patterns.col_major(big)), ("row-major", big)):
+        ms = time_ms(lambda: torch._int_mm(big[:rows], y), 2)
+        int8_rate[layout] = 2 * rows * side * side / ms / 1e9
+        print(f"[4] int8 pattern product, one {rows}-row panel of the {side}^2 frame, second "
+              f"operand {layout}: {ms:.3f} ms, {int8_rate[layout]:.1f} TOP/s "
+              f"({int8_rate[layout] / INT8_TOPS * 100:.1f} % of the data sheet's "
+              f"{INT8_TOPS:.0f})", flush=True)
+    del big, y, x, frame, want
+    torch.cuda.empty_cache()
+
+    real = {}
+    rg_ms = dict.fromkeys(counters, 0.0)
+    rg_launches = dict.fromkeys(counters, 0)
+    for gname, n_g, m_g in real_graphs.GRAPHS:
+        label, coo = real_graphs.load_or_synthesize(gname, n_g, m_g)
+        rows_g, cols_g, vals_g, _ = coo
+        a_g = SparseCSR.from_coo_host(rows_g, cols_g, vals_g, n_g, sr=U64, device=dev)
+        ogbn = gname == "ogbn_arxiv"
+        t0 = time.perf_counter()
+        report = real_graphs.structure_report(label, coo, a_g, with_rcm=not ogbn)
+        t_struct = time.perf_counter() - t0
+        for line in report:
+            print(f"[4] {line}", flush=True)
+        adj = ssp.csr_matrix((np.ones(len(rows_g)), (rows_g, cols_g)), shape=(n_g, n_g))
+        n_comp, labels = csgraph.connected_components(adj, directed=True, connection="weak")
+        check(same_partition(graph_algos.connected_components(a_g), labels),
+              f"{label}: connected_components != scipy's partition")
+        entry = real[label] = dict(structure_s=t_struct, components=int(n_comp))
+        reset_counts()
+        details = []
+        chain = real_graphs.bench_chain(label, a_g, 2 if ogbn else 4, iters=1, verbose=False,
+                                        details=details)
+        counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        got = [int(r.split(",")[4]) for r in chain if r.split(",")[4].isdigit()]
+        check(got == REAL_NNZ[label], f"{label} chain nnz {got} != {REAL_NNZ[label]} ({chain})")
+        check(counts["coalesce_blocks"] >= 1, f"{label} chain made no coalesce_blocks launch")
+        if label == "nell_pl":
+            check(counts["spmm_dense_acc"] >= 1, "nell_pl A^4 made no spmm_dense_acc launch")
+        for name in counters:
+            rg_launches[name] += counts[name]
+        for d in details:
+            for name, ms in d.get("kernel_ms", {}).items():
+                rg_ms[name] += ms
+            print(f"[4] {label} A^{d['step']} [{d['algo']}]: nnz {d['nnz']} (r5's); "
+                  f"{d['seconds']:.6f} s (the first call {d['first_call_s']:.6f} s, device "
+                  f"{d['first_call_device_s']:.6f} s, idle {d['idle_share']:.1%}); peak "
+                  f"allocated {d['peak_bytes'] / 1e9:.2f} GB; kernels (first call) "
+                  f"{d['kernel_ms']}", flush=True)
+        entry["chain"] = details
+        print(f"[4] {label}: A^2 == the oracle's nnz; components == scipy's partition "
+              f"({n_comp}); launches {counts}", flush=True)
+        if label == "cora_pl":
+            hyb = real_graphs.bench_band_hybrid(label, a_g, iters=1, verbose=False)
+            check(len(hyb) == 2 and not any("DNF" in r for r in hyb)
+                  and int(hyb[0].split(",")[4]) == REAL_NNZ[label][0],
+                  f"cora_pl band hybrid: {hyb}")
+            entry["hybrid"] = {r.split(",")[3]: float(r.split(",")[6]) for r in hyb}
+            print(f"[4] cora_pl band hybrid == spgemm_auto's CSR value for value: {hyb}",
+                  flush=True)
+        if not ogbn:
+            adet = []
+            alg = real_graphs.bench_algos(label, a_g, verbose=False, details=adet)
+            (_, _, _, _, reach_nnz, reach_k, _, _), (_, _, _, _, diam, _, _, _) = (
+                r.split(",") for r in alg)
+            sizes = np.bincount(labels).astype(np.int64)
+            want_reach = int((sizes[sizes >= 2] ** 2).sum())
+            t0 = time.perf_counter()
+            want_diam = real_graphs.host_diameter(coo)
+            t_host = time.perf_counter() - t0
+            check(reach_nnz.isdigit() and int(reach_nnz) == want_reach,
+                  f"{label} reachability {alg[0]}: nnz != sum |C|^2 = {want_reach}")
+            check(diam.isdigit() and int(diam) == want_diam,
+                  f"{label} diameter {alg[1]} != the host's exact {want_diam}")
+            if label == "cora_pl":
+                check((int(reach_nnz), int(reach_k), int(diam)) == (7_333_264, 11, 10),
+                      f"cora_pl reachability / diameter {alg} != r5's")
+            for d in adet:
+                d["int8_tops"] = d["int8_ops"] / d["seconds"] / 1e12
+                print(f"[4] {label} {d['algo']}: {d['seconds']:.6f} s; peak allocated "
+                      f"{d['peak_bytes'] / 1e9:.2f} GB; {d['int8_ops']:.4e} int8 operations, "
+                      f"{d['int8_tops']:.1f} TOP/s ({d['int8_tops'] / INT8_TOPS * 100:.1f} % "
+                      f"of the data sheet's {INT8_TOPS:.0f})", flush=True)
+            entry["algos"] = adet
+            entry["reachability"], entry["diameter"] = int(reach_nnz), int(diam)
+            print(f"[4] {label}: reachability nnz {reach_nnz} at k = {reach_k} == sum |C|^2 "
+                  f"over components of >= 2 nodes; diameter {diam} == the host's exact BFS "
+                  f"({t_host:.1f} s)", flush=True)
+        del a_g
+        torch.cuda.empty_cache()
+
+    return real, int8_rate, rg_launches, rg_ms
 
 
 def main() -> None:
@@ -1161,6 +1310,10 @@ def main() -> None:
               f"total {sum(other_chains[algo].values()):.4f} ms ({timed}); path "
               f"{t_path:.1f} s; launches {counts}", flush=True)
 
+    # the real-graph study on the power-law substitutes at the published sizes
+    real, int8_rate, rg_launches, path_ms["real graphs"] = real_graph_phase(
+        dev, counters, reset_counts)
+
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -1195,6 +1348,11 @@ def main() -> None:
         }
         if name in chain_ms:
             entry["chain_ms"] = chain_ms[name]
+        if name in ("spmm_dense_acc", "sortmerge_rows", "coalesce_blocks"):
+            # the real-graph path: its launches, and the device ms of each
+            # step's first (profiled) call
+            entry["real_graph_launches"] = rg_launches[name]
+            entry["real_graph_pass_device_ms"] = path_ms["real graphs"][name]
         kernels.append(entry)
     print(json.dumps({"path_device_ms": path_ms, "rowcat_chain_steps_ms": rowcat_ms,
                       "pass": {name: {"launches": n, "device_ms": ms}
@@ -1209,6 +1367,7 @@ def main() -> None:
     print(json.dumps({"mixed_chain_ms": mixed_ms, "mixed_steps_ms": {
         str(r.step): r.seconds * 1e3 for r in results}, "mixed_densify_ms": t_dens * 1e3,
         "slab_paths": slab_paths}), flush=True)
+    print(json.dumps({"real_graphs": real, "int8_panel_tops": int8_rate}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

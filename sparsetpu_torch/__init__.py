@@ -27,7 +27,12 @@ routes (``ops.denseacc``, ``ops.spmm``), the block-band product
 (``kernels.bandmm``, ``ops.hybrid``), ``ops.elementwise``, the
 ``torch.sparse`` comparator (``utils.bcoo``) and the public router
 ``spgemm_auto``, so the chain takes every ``bench.py --algo`` and the sweep
-all eight of JAX's algorithms.
+all eight of JAX's algorithms.  Slice 7 adds the last ``SparseCSR``
+methods (``from_dense_device``, ``get``, ``lookup``, ``transpose``), numpy
+copies of ``utils.stdrng``, ``utils.oracle`` and ``einsum.parser``, the
+dense int8 pattern engine (``graphs.patterns``, ``torch._int_mm``), the
+graph algorithms (``graphs.algos``) and the real-graph study
+``python -m sparsetpu_torch.bench.real_graphs``.
 
 The JAX package's doctest, on the CPU (the entry points default to the
 card)::
@@ -36,8 +41,19 @@ card)::
     >>> a = SparseCSR.from_coo_host([0, 0, 1], [1, 2, 2], [1, 2, 3], 3, sr=U64,
     ...                             device="cpu")
     >>> c = spgemm_auto(a, a)          # A^2 on the saturating u64 semiring
-    >>> int(c.nnz), int(c.to_dense_numpy()[0, 2])
-    (1, 3)
+    >>> int(c.nnz)
+    1
+    >>> int(c.get(0, 2))               # one path 0->1->2 of weight 1*3
+    3
+    >>> from sparsetpu_torch.ops.spgemm import spadd
+    >>> s = spadd(a, a)                # elementwise saturating add
+    >>> int(s.get(0, 2))
+    4
+    >>> bad = a.__class__.from_coo_host([0], [0], [2**63], 2, sr=U64, device="cpu")
+    >>> int(spgemm_auto(bad, bad).nnz) # 2^126 saturates to u64::MAX
+    1
+    >>> int(spgemm_auto(bad, bad).get(0, 0)) == 2**64 - 1
+    True
 """
 
 from .csr import SparseCSR

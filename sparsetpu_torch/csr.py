@@ -348,3 +348,86 @@ class SparseCSR:
             col = self.col_idx[:capacity]
             vals = tuple(l[:capacity] for l in self.values)
         return dataclasses.replace(self, col_idx=col, values=vals)
+
+    # -- dense builds, lookups and the transpose -----------------------------
+    @staticmethod
+    def from_dense_device(limbs, sr: Semiring, capacity: Optional[int] = None) -> "SparseCSR":
+        """Dense (n, m) limb tensors -> SparseCSR on their device.  The
+        row-major scan of the nonzeros yields (row, col) already sorted, so
+        ``row_ptr`` is one searchsorted.  Without ``capacity`` the nonzero
+        count is fetched once to size it; an undersized ``capacity`` keeps
+        the first ``capacity`` entries and poisons nnz to -1 (``check()``
+        raises), as the JAX package does."""
+        limbs = tuple(torch.as_tensor(l).to(sr.dtype) for l in limbs)
+        n, m = limbs[0].shape
+        device = limbs[0].device
+        mask = limbs[0] != 0
+        for l in limbs[1:]:
+            mask = mask | (l != 0)
+        flat = mask.reshape(-1)
+        true_nnz = flat.sum()
+        if capacity is None:
+            capacity = max(int(true_nnz), 1)
+        size = n * m
+        idx = torch.nonzero_static(flat, size=capacity, fill_value=size)[:, 0]
+        valid = idx < size
+        safe = idx.clamp(max=max(size - 1, 0))
+        rows = torch.where(valid, safe // max(m, 1), n)
+        col_idx = torch.where(valid, safe % max(m, 1), INT32_SENTINEL).int()
+        vals = tuple(torch.where(valid, l.reshape(-1)[safe], 0) if size else
+                     l.new_zeros(capacity) for l in limbs)
+        nnz = torch.where(true_nnz > capacity, -1, valid.sum())
+        row_ptr = torch.searchsorted(
+            rows, torch.arange(n + 1, device=device), side="left").int()
+        return SparseCSR(row_ptr=row_ptr, col_idx=col_idx, values=vals, nnz=nnz,
+                         n_rows=n, n_cols=m, sr_name=sr.name)
+
+    @staticmethod
+    def from_dense_numpy(dense, sr: Semiring = U64, capacity: Optional[int] = None,
+                         device=DEFAULT_DEVICE) -> "SparseCSR":
+        """A dense numpy matrix -> SparseCSR on ``device`` (its nonzeros)."""
+        dense = np.asarray(dense)
+        r, c = np.nonzero(dense)
+        return SparseCSR.from_coo(r, c, dense[r, c], dense.shape[0], dense.shape[1], sr,
+                                  capacity, device=device)
+
+    def get(self, r: int, c: int):
+        """Host scalar lookup by binary search, for tests and debugging."""
+        row_ptr, col_idx, vals = self.to_numpy()
+        s, e = int(row_ptr[r]), int(row_ptr[r + 1])
+        i = np.searchsorted(col_idx[s:e], c)
+        if i < e - s and col_idx[s + i] == c:
+            return vals[s + i]
+        return type(vals[0])(0) if len(vals) else 0
+
+    def lookup(self, rows, cols) -> Value:
+        """The limb values at (rows[i], cols[i]) on the device, zeros where
+        absent: a binary search of each queried row's column segment,
+        log2(capacity) vectorised steps over all queries at once.  Rows out
+        of range return zeros."""
+        rows = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        cols = torch.as_tensor(cols, dtype=torch.int64, device=self.device)
+        ok_r = (rows >= 0) & (rows < self.n_rows)
+        r_safe = rows.clamp(0, max(self.n_rows - 1, 0))
+        row_ptr = self.row_ptr.long()
+        lo = torch.where(ok_r, row_ptr[r_safe], 0)
+        hi0 = torch.where(ok_r, row_ptr[r_safe + 1], 0)
+        hi = hi0
+        col_idx = self.col_idx.long()
+        last = self.capacity - 1
+        for _ in range(max(self.capacity.bit_length(), 1)):
+            act = lo < hi
+            mid = (lo + hi) // 2
+            go = col_idx[mid.clamp(0, last)] < cols
+            lo = torch.where(act & go, mid + 1, lo)
+            hi = torch.where(act & ~go, mid, hi)
+        pos = lo.clamp(0, last)
+        hit = ok_r & (lo < hi0) & (col_idx[pos] == cols)
+        return tuple(torch.where(hit, l[pos], 0) for l in self.values)
+
+    def transpose(self, capacity: Optional[int] = None) -> "SparseCSR":
+        """The n_cols x n_rows transpose, rebuilt by the device COO build."""
+        valid = self._slots() < self.nnz
+        return SparseCSR.from_coo_device(self.col_idx, self.row_of_slot(), self.values,
+                                         self.n_cols, self.n_rows, self.sr,
+                                         capacity or self.capacity, valid=valid)

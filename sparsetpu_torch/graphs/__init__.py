@@ -1,1 +1,3 @@
-"""Host-side graph generators (numpy), ported from ``sparsetpu.graphs``."""
+"""Graphs of the port, from ``sparsetpu.graphs``: the host generators
+(``generate``, ``datasets``), the dense int8 pattern engine (``patterns``)
+and the graph algorithms (``algos``)."""

@@ -1,14 +1,15 @@
 """Host-side graph generators (numpy), ported from ``sparsetpu/graphs/generate.py``.
 
-Numpy-only copies of the generators the chain needs, bit-identical to the
-originals for the same seed: Moore-neighbourhood lattices with optional torus
-wrap, random directed multigraphs, and symmetric ``thin`` density reduction.
-Results are COO triplets ``(rows, cols, vals u64, n)``.
+Numpy-only copies of the generators, bit-identical to the originals for the
+same seed: edge-list builders, Moore-neighbourhood lattices with optional
+torus wrap, random directed multigraphs, symmetric ``thin`` density
+reduction and the identity.  Results are COO triplets ``(rows, cols, vals
+u64, n)``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -35,6 +36,31 @@ def _dedup_coo(n: int, rows, cols, vals) -> Coo:
     ur, uc = rows[head], cols[head]
     keep = totals != 0
     return ur[keep].astype(np.int32), uc[keep].astype(np.int32), totals[keep], n
+
+
+def from_edges(n: int, edges: Sequence[Tuple[int, int]], undirected: bool = False) -> Coo:
+    """Each edge counts 1 and duplicates sum; ``undirected`` adds the
+    reverse of every edge but a self-loop."""
+    rows, cols = [], []
+    for r, c in edges:
+        rows.append(r)
+        cols.append(c)
+        if undirected and r != c:
+            rows.append(c)
+            cols.append(r)
+    return _dedup_coo(n, rows, cols, np.ones(len(rows), np.uint64))
+
+
+def from_adjacency(pairs: Iterable[Tuple[str, str]]) -> Tuple[Coo, Dict[str, int]]:
+    """Named edges; ids assigned in order of first appearance."""
+    names: Dict[str, int] = {}
+    edges = []
+    for a, b in pairs:
+        for x in (a, b):
+            if x not in names:
+                names[x] = len(names)
+        edges.append((names[a], names[b]))
+    return from_edges(len(names), edges), names
 
 
 def random_graph(n: int, m: int, seed: int = 0) -> Coo:
@@ -123,3 +149,9 @@ def thin(coo: Coo, density: float, seed: int = 0) -> Coo:
     out_c = np.concatenate([uc, cols[src_idx]])
     out_v = np.concatenate([uv, vals[src_idx]])
     return _dedup_coo(n, out_r, out_c, out_v)
+
+
+def identity(n: int) -> Coo:
+    """The n x n identity as COO, value 1 on the diagonal."""
+    idx = np.arange(n, dtype=np.int32)
+    return idx, idx.copy(), np.ones(n, np.uint64), n

@@ -371,7 +371,10 @@ def test_port_never_imports_jax():
             "sparsetpu_torch.ops.colchunk, sparsetpu_torch.ops.denseacc, "
             "sparsetpu_torch.ops.spmm, sparsetpu_torch.ops.elementwise, "
             "sparsetpu_torch.ops.hybrid, sparsetpu_torch.kernels.bandmm, "
-            "sparsetpu_torch.utils.bcoo; "
+            "sparsetpu_torch.utils.bcoo, sparsetpu_torch.utils.stdrng, "
+            "sparsetpu_torch.utils.oracle, sparsetpu_torch.einsum.parser, "
+            "sparsetpu_torch.graphs.generate, sparsetpu_torch.graphs.patterns, "
+            "sparsetpu_torch.graphs.algos, sparsetpu_torch.bench.real_graphs; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'sparsetpu.')) or m == 'sparsetpu'); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -60,6 +60,30 @@ def test_random_graph_matches_jax(n, m, seed):
     _assert_coo_equal(tgen.random_graph(n, m, seed), jgen.random_graph(n, m, seed))
 
 
+@pytest.mark.parametrize("n,edges,undirected", [
+    (4, [(0, 1), (1, 2), (2, 3)], False),
+    # duplicates sum, a self-loop is not mirrored, unsorted input
+    (6, [(3, 1), (0, 5), (3, 1), (2, 2), (5, 0), (1, 3)], True),
+    (6, [(3, 1), (0, 5), (3, 1), (2, 2), (5, 0), (1, 3)], False),
+    (3, [], True),
+])
+def test_from_edges_matches_jax(n, edges, undirected):
+    _assert_coo_equal(tgen.from_edges(n, edges, undirected=undirected),
+                      jgen.from_edges(n, edges, undirected=undirected))
+
+
+def test_from_adjacency_matches_jax():
+    pairs = [("b", "a"), ("a", "c"), ("c", "b"), ("b", "a"), ("d", "d")]
+    (got, names), (want, jnames) = tgen.from_adjacency(pairs), jgen.from_adjacency(pairs)
+    _assert_coo_equal(got, want)
+    assert names == jnames == {"b": 0, "a": 1, "c": 2, "d": 3}
+
+
+@pytest.mark.parametrize("n", [0, 1, 7])
+def test_identity_matches_jax(n):
+    _assert_coo_equal(tgen.identity(n), jgen.identity(n))
+
+
 def test_random_graph_rejects_tiny_n():
     with pytest.raises(ValueError):
         tgen.random_graph(1, 3)
