@@ -88,14 +88,18 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    with the second operand column-major and row-major; per graph the
    structure report (RCM but on ogbn), its components equal to scipy's
    partition, the chain (A^2..A^4; ogbn A^2 only) at --iters 1 with every
-   step's nnz equal to reports/real_graphs_r5.csv's and A^2 to the oracle's,
-   each step's route, time, idle share and peak memory, at least one
-   coalesce launch per graph and one dense-acc launch on nell (A^4);
-   cora's band hybrid equal to spgemm_auto's CSR value for value; on cora
-   and nell reachability and the diameter on the int8 engine, reachability's
-   nnz equal to sum |C|^2 over the components of two or more nodes (cora:
-   7,333,264 at k = 11) and the diameter equal to the host's exact BFS
-   (cora: 10), with seconds, peak memory and the int8 rate.
+   step's nnz equal to reports/real_graphs_r5.csv's, A^2's whole CSR (and
+   cora's A^3 and A^4) to the oracle's, each step's route, time, idle share
+   and peak memory, at least one coalesce launch per graph and one dense-acc
+   launch on nell (A^4); each kernel a step launched held exactly against
+   its plain version on the inputs of its first call in the step's timed
+   product (nell A^4: A and a 5,120-column panel of A^3; every slab and
+   colchunk step's coalesce streams); cora's band hybrid equal to spgemm_auto's CSR value for value;
+   on cora and nell reachability and the diameter on the int8 engine,
+   reachability's nnz equal to sum |C|^2 over the components of two or more
+   nodes (cora: 7,333,264 at k = 11) and k equal to the diameter + 1, the
+   diameter equal to the host's exact BFS (cora: 10), with seconds, peak
+   memory and the int8 rate.
    Each path runs under torch.profiler, and every kernel's device time is
    summed over it, warm-ups and repetitions included; one pass of each
    path (one untimed call of each step: a chain's steps once, one product a
@@ -104,14 +108,17 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
 5. JSON lines (the kernels line: each kernel's launches and device time
    summed over its path and over one pass, its times, bound and library
    call, and for dense-acc, sort-merge and coalesce the real-graph path's
-   launches and first-call device time), the card line, and the contract line
+   launches, first-call device time and max |error| on its inputs), the
+   card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -269,11 +276,104 @@ def sdd_library_mask(qi, ki, m: int, n: int):
                                    size=(m, n))
 
 
+# the kernels the real-graph path can launch (sort-merge only where rowcat's
+# fallback fires)
+REAL_GRAPH_KERNELS = ("spmm_dense_acc", "coalesce_blocks", "sortmerge_rows")
+
+
+def flat_tensors(out):
+    """The tensors of a kernel wrapper's result (a tensor or nested tuples)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in flat_tensors(part)]
+
+
+@contextlib.contextmanager
+def kernel_inputs(real_graphs, modules, captured):
+    """Within the block, each kernel wrapper of ``modules`` ({name: kernel
+    module}) keeps the arguments of its first call in each repeated
+    ``spgemm_auto`` call of the real-graph driver (a chain step's timed
+    call: the same operands as the step's first call) in ``captured[(name,
+    route)]``.  The step's first call, the one profiled, keeps nothing
+    alive.  The wrappers run as before; nothing is copied."""
+    state = {}
+    auto = real_graphs.spgemm_auto
+    wrappers = {name: getattr(mod, name) for name, mod in modules.items()}
+
+    def routed(a, b, **kwargs):
+        last = state.get("b")
+        repeat = last is not None and last() is b
+        state.clear()
+        state.update(b=weakref.ref(b), route=kwargs.get("kernel", "auto"), armed=repeat)
+        return auto(a, b, **kwargs)
+
+    def keeping(name):
+        def call(*args, **kwargs):
+            if state.get("armed") and name not in state:
+                state[name] = True
+                captured[(name, state["route"])] = (args, kwargs)
+            return wrappers[name](*args, **kwargs)
+        return call
+
+    real_graphs.spgemm_auto = routed
+    for name, mod in modules.items():
+        setattr(mod, name, keeping(name))
+    try:
+        yield
+    finally:
+        real_graphs.spgemm_auto = auto
+        for name, mod in modules.items():
+            setattr(mod, name, wrappers[name])
+
+
+def chain_checks(label, a, counters, captured, errs):
+    """A ``bench_chain`` ``on_product`` hook, the steps it saw and the
+    kernels it compared: each
+    kernel call kept in ``captured`` during the step's timed call is run
+    again beside its plain version on the same inputs (exact; the max
+    |error| into ``errs``; that launch is not counted) and released; on cora_pl each step's product A x
+    A^(k-1) is also held against the C++ oracle's whole CSR (row offsets,
+    columns, values)."""
+    from sparsetpu_torch import native
+    from sparsetpu_torch.bench import spgemm_bench
+
+    host_a = native.as_host_csr(*a.to_numpy()) if label == "cora_pl" else None
+    prev, steps, compared = [host_a], [], set()
+
+    def on_product(step, c):
+        steps.append(step)
+        for (name, route), (args, kwargs) in sorted(captured.items()):
+            mod = counters[name]
+            n_path = mod.LAUNCHES
+            got = flat_tensors(getattr(mod, name)(*args, **kwargs))
+            mod.LAUNCHES = n_path  # a comparison's launch is not the path's
+            want = flat_tensors(getattr(mod, f"{name}_reference")(*args, **kwargs))
+            check(len(got) == len(want), f"{label} A^{step} {name}: {len(got)} outputs "
+                  f"!= the plain version's {len(want)}")
+            err = max(compare(f"{label} A^{step} {name} ({route})", g, w)
+                      for g, w in zip(got, want))
+            errs[name] = max(errs.get(name, 0.0), err)
+            compared.add(name)
+            # dense-acc's P (a panel of A^(k-1)), coalesce's first stream,
+            # sort-merge's columns
+            print(f"[4] {label} A^{step} {name} on its first call's inputs in the {route} "
+                  f"product ({tuple(flat_tensors(args[1])[0].shape)}) == the plain version "
+                  f"(exact)", flush=True)
+            del got, want
+        captured.clear()
+        if host_a is not None:
+            want = native.spgemm(host_a, prev[0], a.n_rows)
+            spgemm_bench.check_against_oracle(c, want, f"{label} A^{step}")
+            prev[0] = want
+    return on_product, steps, compared
+
+
 def real_graph_phase(dev, counters, reset_counts):
     """Phase 4's real-graph study (bench/real_graphs.py) on the card; returns
     (per-graph results, the int8 panel rates, the path's kernel launches,
-    each kernel's device ms summed over the steps' first calls).  Raises on
-    any failed check."""
+    each kernel's device ms summed over the steps' first calls, each
+    kernel's max |error| against its plain version on the path's own
+    inputs).  Raises on any failed check."""
     import scipy.sparse as ssp
     from scipy.sparse import csgraph
 
@@ -310,11 +410,13 @@ def real_graph_phase(dev, counters, reset_counts):
     real = {}
     rg_ms = dict.fromkeys(counters, 0.0)
     rg_launches = dict.fromkeys(counters, 0)
+    rg_err = {}
     for gname, n_g, m_g in real_graphs.GRAPHS:
         label, coo = real_graphs.load_or_synthesize(gname, n_g, m_g)
         rows_g, cols_g, vals_g, _ = coo
         a_g = SparseCSR.from_coo_host(rows_g, cols_g, vals_g, n_g, sr=U64, device=dev)
         ogbn = gname == "ogbn_arxiv"
+        max_power = 2 if ogbn else 4
         t0 = time.perf_counter()
         report = real_graphs.structure_report(label, coo, a_g, with_rcm=not ogbn)
         t_struct = time.perf_counter() - t0
@@ -325,11 +427,18 @@ def real_graph_phase(dev, counters, reset_counts):
         check(same_partition(graph_algos.connected_components(a_g), labels),
               f"{label}: connected_components != scipy's partition")
         entry = real[label] = dict(structure_s=t_struct, components=int(n_comp))
+        captured = {}
+        on_product, steps, compared = chain_checks(label, a_g, counters, captured, rg_err)
         reset_counts()
         details = []
-        chain = real_graphs.bench_chain(label, a_g, 2 if ogbn else 4, iters=1, verbose=False,
-                                        details=details)
+        with kernel_inputs(real_graphs, {k: counters[k] for k in REAL_GRAPH_KERNELS}, captured):
+            chain = real_graphs.bench_chain(label, a_g, max_power, iters=1,
+                                            verbose=False, details=details,
+                                            on_product=on_product)
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+        check(steps == list(range(2, max_power + 1)), f"{label}: steps checked {steps}")
+        check({k for k in REAL_GRAPH_KERNELS if counts[k]} <= compared,
+              f"{label}: launched {counts}, compared with the plain version {compared}")
         got = [int(r.split(",")[4]) for r in chain if r.split(",")[4].isdigit()]
         check(got == REAL_NNZ[label], f"{label} chain nnz {got} != {REAL_NNZ[label]} ({chain})")
         check(counts["coalesce_blocks"] >= 1, f"{label} chain made no coalesce_blocks launch")
@@ -346,8 +455,9 @@ def real_graph_phase(dev, counters, reset_counts):
                   f"allocated {d['peak_bytes'] / 1e9:.2f} GB; kernels (first call) "
                   f"{d['kernel_ms']}", flush=True)
         entry["chain"] = details
-        print(f"[4] {label}: A^2 == the oracle's nnz; components == scipy's partition "
-              f"({n_comp}); launches {counts}", flush=True)
+        held = "A^2..A^4" if label == "cora_pl" else "A^2"
+        print(f"[4] {label}: {held} == the oracle's whole CSR; components == scipy's "
+              f"partition ({n_comp}); launches {counts}", flush=True)
         if label == "cora_pl":
             hyb = real_graphs.bench_band_hybrid(label, a_g, iters=1, verbose=False)
             check(len(hyb) == 2 and not any("DNF" in r for r in hyb)
@@ -370,6 +480,10 @@ def real_graph_phase(dev, counters, reset_counts):
                   f"{label} reachability {alg[0]}: nnz != sum |C|^2 = {want_reach}")
             check(diam.isdigit() and int(diam) == want_diam,
                   f"{label} diameter {alg[1]} != the host's exact {want_diam}")
+            # one component: the powers' pattern settles one step past the
+            # diameter, so k also pins the products' reach
+            check(n_comp > 1 or int(reach_k) == want_diam + 1,
+                  f"{label} reachability k = {reach_k} != the diameter {want_diam} + 1")
             if label == "cora_pl":
                 check((int(reach_nnz), int(reach_k), int(diam)) == (7_333_264, 11, 10),
                       f"cora_pl reachability / diameter {alg} != r5's")
@@ -387,7 +501,7 @@ def real_graph_phase(dev, counters, reset_counts):
         del a_g
         torch.cuda.empty_cache()
 
-    return real, int8_rate, rg_launches, rg_ms
+    return real, int8_rate, rg_launches, rg_ms, rg_err
 
 
 def main() -> None:
@@ -1311,7 +1425,7 @@ def main() -> None:
               f"{t_path:.1f} s; launches {counts}", flush=True)
 
     # the real-graph study on the power-law substitutes at the published sizes
-    real, int8_rate, rg_launches, path_ms["real graphs"] = real_graph_phase(
+    real, int8_rate, rg_launches, path_ms["real graphs"], rg_err = real_graph_phase(
         dev, counters, reset_counts)
 
     # ---- phase 5: results
@@ -1349,10 +1463,12 @@ def main() -> None:
         if name in chain_ms:
             entry["chain_ms"] = chain_ms[name]
         if name in ("spmm_dense_acc", "sortmerge_rows", "coalesce_blocks"):
-            # the real-graph path: its launches, and the device ms of each
-            # step's first (profiled) call
+            # the real-graph path: its launches, the device ms of each step's
+            # first (profiled) call, and the max |error| against the plain
+            # version on that path's own inputs (None: not launched there)
             entry["real_graph_launches"] = rg_launches[name]
             entry["real_graph_pass_device_ms"] = path_ms["real graphs"][name]
+            entry["real_graph_max_abs_err"] = rg_err.get(name)
         kernels.append(entry)
     print(json.dumps({"path_device_ms": path_ms, "rowcat_chain_steps_ms": rowcat_ms,
                       "pass": {name: {"launches": n, "device_ms": ms}

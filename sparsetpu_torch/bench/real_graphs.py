@@ -12,8 +12,8 @@ Per graph:
 
 - the structure report: components, degrees, bandwidth before and after
   reverse Cuthill-McKee;
-- the A^2..A^k chain, each step routed by the study's guards, A^2 checked
-  against the C++ oracle first (CSV ``graph,n,nnz_a,step,nnz_out,flops,
+- the A^2..A^k chain, each step routed by the study's guards, A^2's whole
+  CSR checked against the C++ oracle's (JAX checks its nnz; CSV ``graph,n,nnz_a,step,nnz_out,flops,
   seconds,algo``, JAX's);
 - ``--algos``: reachability (the pattern-stable sum of powers) and the
   diameter, on the dense int8 pattern engine where its frame fits the card;
@@ -34,20 +34,25 @@ JAX's, as do ``ops/spgemm.py``'s router constants.
   temporaries.  nell's two frames take 35 GB, so A^4 stays tiled, as on the
   TPU.
 - ``max_dma_issues``: the tiled route's 2 x nnz(A) x panels row gathers,
-  priced on the TPU at ~340 ns a DMA issue (600M ~ 3.5 min).  The card's
-  kernel gathers a row of a panel (<= 8,192 f32, 32 KB) from memory at its
-  rate; 40e9 rows of 8 KB are ~100 s at the data sheet's 3.35 TB/s.
+  priced on the TPU at ~340 ns a DMA issue (600M ~ 3.5 min).  The panels
+  are those ``spgemm_auto`` runs, ``dense_acc_panel_cols(n)`` at the
+  router's own 6e9 budget (the same as JAX's ``DENSE_FIT_BYTES``, so the
+  count is JAX's): 13 of 5,120 columns at nell, 83 of 2,048 at ogbn-arxiv.
+  The card's kernel gathers a row of a panel (2,048 f32 at ogbn, 8 KB)
+  from memory at its rate; 40e9 rows of 8 KB are ~100 s at the data
+  sheet's 3.35 TB/s.
 - The output guard, min(flops, n^2) x ``out_entry_bytes`` <= ``out_budget_
   bytes``: 12 B an entry and 5e9 on the TPU (nell A^4 ran out of memory
   past it); the port stores an entry in 20 B (an int32 column and two
   uint32 limbs carried in int64) and gives the output half of the card,
   40e9 B.  ogbn A^3 (697.8M products, 14 GB) then gets an attempt.
-- ``closure_budget_bytes`` (the card only): a sparse closure holds at most
-  sum |C|^2 entries over the weakly connected components C; where that
-  times 20 B passes 40e9, reachability and the diameter on the sparse route
-  are a ``DNF_closure_budget`` row rather than minutes of products that end
-  out of memory.  ogbn-arxiv (one component of 169,343 nodes: 28.7e9
-  entries, 574 GB) is such a row; nell takes the dense engine.
+- The same budget prices a sparse closure (reachability and the diameter
+  where the int8 frame does not fit): it holds at most sum |C|^2 entries
+  over the weakly connected components C; past the budget both are a
+  ``DNF_closure_budget`` row rather than minutes of products that end out
+  of memory.  ogbn-arxiv (one component of 169,343 nodes: 28.7e9 entries,
+  574 GB) is such a row; nell takes the dense engine.  JAX has no such
+  guard: its rows differ only for graphs past the frame's cap.
 
 Failures.  An out-of-memory error (``torch.cuda.OutOfMemoryError``, where
 JAX catches its ``JaxRuntimeError``, or the host's ``MemoryError``), a
@@ -71,7 +76,7 @@ import math
 import os
 import time
 import zlib
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +87,7 @@ from ..graphs import algos, datasets, patterns
 from ..graphs.patterns import ConvergenceError
 from ..ops.spgemm import dense_acc_panel_cols, spgemm_auto, symbolic_flops_exact
 from ..semiring import U64
+from .spgemm_bench import check_against_oracle
 
 # published sizes: directed edge counts of Planetoid cora / nell and ogbn-arxiv
 GRAPHS = [
@@ -104,8 +110,7 @@ class Guards:
     dense_fit_bytes: float      # the untiled dense accumulator's two frames
     colchunk_max_flops: int     # the column-chunked slab, up to this
     out_entry_bytes: int        # bytes an output entry
-    out_budget_bytes: float     # the output guard's budget
-    closure_budget_bytes: Optional[float] = None  # the sparse closure's (card only)
+    out_budget_bytes: float     # the output's budget, and a sparse closure's
 
 
 JAX_GUARDS = Guards(max_expansion=1 << 28, max_nnz=1 << 26, max_dma_issues=600_000_000,
@@ -113,7 +118,7 @@ JAX_GUARDS = Guards(max_expansion=1 << 28, max_nnz=1 << 26, max_dma_issues=600_0
                     colchunk_max_flops=1 << 28, out_entry_bytes=12, out_budget_bytes=5e9)
 CARD_GUARDS = dataclasses.replace(
     JAX_GUARDS, max_dma_issues=40e9, dense_fit_bytes=30e9,
-    out_entry_bytes=PORT_ENTRY_BYTES, out_budget_bytes=40e9, closure_budget_bytes=40e9)
+    out_entry_bytes=PORT_ENTRY_BYTES, out_budget_bytes=40e9)
 
 
 def _dnf_errors():
@@ -182,7 +187,7 @@ def route_step(n: int, nnz_a: int, flops: int, guards: Guards = CARD_GUARDS) -> 
     within the gather and output budgets, else a DNF."""
     padded_m = -(-n // 1024) * 1024
     dense_fits = n * padded_m * 4 * 2 <= guards.dense_fit_bytes
-    panel_w = dense_acc_panel_cols(n, guards.dense_fit_bytes)
+    panel_w = dense_acc_panel_cols(n)  # the width spgemm_auto's tiled route runs
     n_panels = -(-n // panel_w) if panel_w else 0
     t_tiled_est = n * padded_m * 4.3e-9 if panel_w else math.inf
     if flops <= guards.sort_max_flops:
@@ -226,15 +231,19 @@ def _profiled_call(fn, device: torch.device, profile: bool = True):
 
 def bench_chain(label: str, a: SparseCSR, max_power: int, iters: int = 2,
                 verbose: bool = True, flush_fn=None, guards: Guards = CARD_GUARDS,
-                details: Optional[list] = None) -> List[str]:
-    """A^2..A^max_power: each step's route (``route_step``), the oracle's
-    nnz on A^2 first, then the least of ``iters`` whole calls by the host
-    clock after a synchronisation.  Each step computes A x A^(k-1): the
+                details: Optional[list] = None,
+                on_product: Optional[Callable[[int, SparseCSR], None]] = None) -> List[str]:
+    """A^2..A^max_power: each step's route (``route_step``), A^2's whole CSR
+    against the oracle's first, then the least of ``iters`` whole calls by
+    the host clock after a synchronisation.  Each step computes A x A^(k-1): the
     sparse operand of the dense-accumulator routes stays A.  ``details``,
     when given, receives a dict a step: route, nnz, the timed seconds, the
     first call's wall and device seconds (on the card: under
     torch.profiler, with the hand-written kernels' device ms) and the peak
-    of allocated card memory."""
+    of allocated card memory.  ``on_product``, when given, is called as
+    ``on_product(step, C)`` once the step is timed, with the product of its
+    last timed call (a caller's own check; not for a step whose timed call
+    ran out of memory)."""
     rows: List[str] = []
     n = a.n_rows
     device = a.device
@@ -249,7 +258,7 @@ def bench_chain(label: str, a: SparseCSR, max_power: int, iters: int = 2,
     # the oracle's A^2 before anything is timed
     rp_h, ci_h, v_h = a.to_numpy()
     base = native.as_host_csr(rp_h.astype(np.int64), ci_h, v_h)
-    crp, _, _ = native.spgemm(base, base, n)
+    want2 = native.spgemm(base, base, n)
     nnz_a = int(a.nnz)
 
     prev = a
@@ -273,8 +282,9 @@ def bench_chain(label: str, a: SparseCSR, max_power: int, iters: int = 2,
             emit(f"{label},{n},{nnz_a},{step},DNF_{type(e).__name__},{flops},0,{algo}",
                  f"  # {str(e)[:160]}")
             break
-        if step == 2 and int(c.nnz) != int(crp[-1]):
-            raise RuntimeError(f"{label} A^2: nnz {int(c.nnz)} != the oracle's {int(crp[-1])}")
+        if step == 2:
+            check_against_oracle(c, want2, f"{label} A^2")
+            del want2
         nnz_c = int(c.nnz)
         # keep at most one output alive: at this scale a second one doubles
         # the peak (nell A^4 ran out of memory on the TPU's second call)
@@ -304,6 +314,8 @@ def bench_chain(label: str, a: SparseCSR, max_power: int, iters: int = 2,
                             idle_share=max(0.0, 1.0 - prof[0] / wall1), kernel_ms=prof[1],
                             peak_bytes=torch.cuda.max_memory_allocated(device))
             details.append(info)
+        if on_product is not None and out is not None:
+            on_product(step, out)
         if last_step:
             break
         if out is None:  # a timed call ran out of memory: recompute, in a handler
@@ -326,11 +338,11 @@ def closure_bound(a: SparseCSR) -> int:
 
 def _closure_dnf(a: SparseCSR, guards: Guards) -> Optional[int]:
     """The closure bound when the sparse route would be taken and its
-    entries pass the card's closure budget, else None."""
-    if guards.closure_budget_bytes is None or patterns.fits(a.n_rows):
+    entries pass the output budget, else None."""
+    if patterns.fits(a.n_rows):
         return None
     bound = closure_bound(a)
-    return bound if bound * PORT_ENTRY_BYTES > guards.closure_budget_bytes else None
+    return bound if bound * guards.out_entry_bytes > guards.out_budget_bytes else None
 
 
 def bench_algos(label: str, a: SparseCSR, verbose: bool = True, guards: Guards = CARD_GUARDS,

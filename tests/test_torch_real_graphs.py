@@ -138,6 +138,22 @@ def test_card_guards_attempt_ogbn_a3_and_keep_the_other_routes():
     assert rg.route_step(65755, 251536, 403647080, rg.CARD_GUARDS) == "denseacc_tiled"
 
 
+@pytest.mark.parametrize("n, nnz_a, panels", [(65755, 251536, 13), (169343, 1166243, 83)])
+def test_gather_guard_counts_the_panels_the_tiled_route_runs(n, nnz_a, panels):
+    """The tiled route's gathers are priced at the panel width spgemm_auto
+    runs (dense_acc_panel_cols at the router's budget: 5,120 columns at
+    nell, 2,048 at ogbn-arxiv), not at the untiled frames' budget: a gather
+    budget of exactly 2 x nnz(A) x panels admits the route, one less refuses it."""
+    from sparsetpu_torch.ops.spgemm import dense_acc_panel_cols
+
+    assert -(-n // dense_acc_panel_cols(n)) == panels
+    flops = 1 << 29  # past colchunk's cap, within the output budget
+    for budget, want in ((2 * nnz_a * panels, "denseacc_tiled"),
+                         (2 * nnz_a * panels - 1, "DNF_budget")):
+        guards = rg.dataclasses.replace(rg.CARD_GUARDS, max_dma_issues=budget)
+        assert rg.route_step(n, nnz_a, flops, guards) == want
+
+
 def test_out_of_memory_becomes_a_dnf_row_and_a_kernel_failure_propagates(small, monkeypatch):
     _, _, a = small
     calls = []
@@ -165,7 +181,9 @@ def test_closure_guard_writes_dnf_rows_on_the_sparse_route(small, monkeypatch):
     _, _, a = small
     assert rg.closure_bound(a) == 300 * 300
     monkeypatch.setattr(patterns, "fits", lambda n: False)
-    tight = rg.dataclasses.replace(rg.CARD_GUARDS, closure_budget_bytes=1e6)
+    # 90,000 entries of 20 B: past a budget of 1e6 B, within the card's 40e9
+    assert rg.bench_algos("pl300", a, verbose=False)[0].split(",")[4] == "90000"
+    tight = rg.dataclasses.replace(rg.CARD_GUARDS, out_budget_bytes=1e6)
     rows = rg.bench_algos("pl300", a, verbose=False, guards=tight)
     assert [r.split(",")[3:6] for r in rows] == [
         ["reachability", "DNF_closure_budget", "90000"],
