@@ -100,6 +100,22 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    nodes (cora: 7,333,264 at k = 11) and k equal to the diameter + 1, the
    diameter equal to the host's exact BFS (cora: 10), with seconds, peak
    memory and the int8 rate.
+   Then the einsum engine (``einsum/engine.py``), its kernel counts set to
+   0 before it and read after it: ``bench/engine_bench.run`` at ER 27,000 x
+   8 (the dense, sparse, SpMM and chain tiers, each engine result equal to
+   its direct call: dense bit for bit, sparse and chain the whole CSR, SpMM
+   at rtol 1e-5, atol 1e-4); the chain tier on the 30^3 torus (A^3 equal to
+   the oracle's whole CSR, its products' counts 314,066 and 938,569) and on
+   nell_pl (A^4 as (A.A).(A.A), nnz 321,409,501 as r5's); the exact
+   entry-driven tier (sum of A^4 * A on the torus, equal to numpy on the
+   oracle's CSRs); the grouped tier at GPT-2 117M (config 1's Q and K at
+   density 1e-2 as GroupedCSR, equal to the dense scores at rtol 1e-4, atol
+   1e-5); the device btree (2^24 keys, 2^16 queries, half misses: (pos,
+   hit) equal to torch.searchsorted plus equality, both timed).  Each
+   einsum runs once under torch.profiler (each product's route printed)
+   and once timed, that call's kernels' first-call inputs held exactly
+   against their plain versions (every kernel it launched; those launches
+   not counted); at least one coalesce launch.
    Each path runs under torch.profiler, and every kernel's device time is
    summed over it, warm-ups and repetitions included; one pass of each
    path (one untimed call of each step: a chain's steps once, one product a
@@ -107,9 +123,11 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    and pass device time;
 5. JSON lines (the kernels line: each kernel's launches and device time
    summed over its path and over one pass, its times, bound and library
-   call, and for dense-acc, sort-merge and coalesce the real-graph path's
-   launches, first-call device time and max |error| on its inputs), the
-   card line, and the contract line
+   call, for dense-acc, sort-merge and coalesce the real-graph path's
+   launches, first-call device time and max |error| on its inputs, and for
+   every kernel the einsum engine phase's launches, the device ms of its
+   profiled calls and the max |error| on its inputs), the card line, and
+   the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -326,14 +344,56 @@ def kernel_inputs(real_graphs, modules, captured):
             setattr(mod, name, wrappers[name])
 
 
+def plain_version(name, mod, args, kwargs):
+    """A kernel wrapper's plain version on the same inputs.  Dense-acc's
+    materialises an (nnz, m) gather (82 GB for nell's A^2 against a 5,120
+    column panel), so it runs in column blocks of at most 4 GB: each column
+    of C reads the same column of P alone, so the blocks join into the
+    same C."""
+    ref = getattr(mod, f"{name}_reference")
+    if name == "spmm_dense_acc":
+        op, p = args[0], args[1]
+        w = max(1, (4 << 30) // (4 * max(op.col_idx.numel(), 1)))
+        if w < p.shape[1]:
+            return torch.cat([ref(op, p[:, c0:c0 + w].contiguous())
+                              for c0 in range(0, p.shape[1], w)], dim=1)
+    return ref(*args, **kwargs)
+
+
+def hold_kernels(where, captured, counters, errs):
+    """Run each kernel call kept in ``captured`` ({(name, route): (args,
+    kwargs)}) again beside its plain version on the same inputs (exact; the
+    max |error| into ``errs``; that launch is not counted) and release
+    them; returns the kernels compared."""
+    compared = set()
+    for (name, route), (args, kwargs) in sorted(captured.items()):
+        mod = counters[name]
+        n_path = mod.LAUNCHES
+        got = flat_tensors(getattr(mod, name)(*args, **kwargs))
+        mod.LAUNCHES = n_path  # a comparison's launch is not the path's
+        want = flat_tensors(plain_version(name, mod, args, kwargs))
+        check(len(got) == len(want), f"{where} {name}: {len(got)} outputs "
+              f"!= the plain version's {len(want)}")
+        err = max(compare(f"{where} {name} ({route})", g, w) for g, w in zip(got, want))
+        errs[name] = max(errs.get(name, 0.0), err)
+        compared.add(name)
+        # dense-acc's P (a panel of the right operand), coalesce's first
+        # stream, sort-merge's columns
+        print(f"[4] {where} {name} on its first call's inputs in the {route} product "
+              f"({tuple(flat_tensors(args[1])[0].shape)}) == the plain version (exact)",
+              flush=True)
+        del got, want
+    captured.clear()
+    return compared
+
+
 def chain_checks(label, a, counters, captured, errs):
     """A ``bench_chain`` ``on_product`` hook, the steps it saw and the
-    kernels it compared: each
-    kernel call kept in ``captured`` during the step's timed call is run
-    again beside its plain version on the same inputs (exact; the max
-    |error| into ``errs``; that launch is not counted) and released; on cora_pl each step's product A x
-    A^(k-1) is also held against the C++ oracle's whole CSR (row offsets,
-    columns, values)."""
+    kernels it compared: the kernel calls kept in ``captured`` during the
+    step's timed call are held against their plain versions
+    (``hold_kernels``); on cora_pl each step's product A x A^(k-1) is also
+    held against the C++ oracle's whole CSR (row offsets, columns,
+    values)."""
     from sparsetpu_torch import native
     from sparsetpu_torch.bench import spgemm_bench
 
@@ -342,25 +402,7 @@ def chain_checks(label, a, counters, captured, errs):
 
     def on_product(step, c):
         steps.append(step)
-        for (name, route), (args, kwargs) in sorted(captured.items()):
-            mod = counters[name]
-            n_path = mod.LAUNCHES
-            got = flat_tensors(getattr(mod, name)(*args, **kwargs))
-            mod.LAUNCHES = n_path  # a comparison's launch is not the path's
-            want = flat_tensors(getattr(mod, f"{name}_reference")(*args, **kwargs))
-            check(len(got) == len(want), f"{label} A^{step} {name}: {len(got)} outputs "
-                  f"!= the plain version's {len(want)}")
-            err = max(compare(f"{label} A^{step} {name} ({route})", g, w)
-                      for g, w in zip(got, want))
-            errs[name] = max(errs.get(name, 0.0), err)
-            compared.add(name)
-            # dense-acc's P (a panel of A^(k-1)), coalesce's first stream,
-            # sort-merge's columns
-            print(f"[4] {label} A^{step} {name} on its first call's inputs in the {route} "
-                  f"product ({tuple(flat_tensors(args[1])[0].shape)}) == the plain version "
-                  f"(exact)", flush=True)
-            del got, want
-        captured.clear()
+        compared.update(hold_kernels(f"{label} A^{step}", captured, counters, errs))
         if host_a is not None:
             want = native.spgemm(host_a, prev[0], a.n_rows)
             spgemm_bench.check_against_oracle(c, want, f"{label} A^{step}")
@@ -502,6 +544,229 @@ def real_graph_phase(dev, counters, reset_counts):
         torch.cuda.empty_cache()
 
     return real, int8_rate, rg_launches, rg_ms, rg_err
+
+
+# the kernels the einsum engine's path can launch: coalesce (colchunk and
+# slab products), dense-acc (the panel sweep), sort-merge (the rowcat
+# fallback)
+ENGINE_KERNELS = REAL_GRAPH_KERNELS
+ENGINE_N, ENGINE_NNZ_PER_ROW = 27000, 8  # engine_bench's cells (BASELINE configs 3-4)
+NELL_A4_NNZ = 321_409_501  # reports/real_graphs_r5.csv line 11
+BTREE_KEYS, BTREE_QUERIES = 1 << 24, 1 << 16  # reports/probe_btree.csv's largest row
+
+
+@contextlib.contextmanager
+def engine_kernel_inputs(modules, captured, products):
+    """Within the block, every ``spgemm_auto`` call (the einsum engine's
+    chain tier calls it through ``ops.spgemm``) appends (product count,
+    dense-dense tiers, route) to ``products``, and each kernel wrapper of
+    ``modules`` ({name: kernel module}) keeps the arguments of its first
+    call under each route in ``captured[(name, route)]``, unless one is
+    kept already.  The wrappers run as before; nothing is copied."""
+    from sparsetpu_torch.ops import spgemm as spgemm_ops
+
+    state = {}
+    auto = spgemm_ops.spgemm_auto
+    wrappers = {name: getattr(mod, name) for name, mod in modules.items()}
+
+    def routed(a, b, **kwargs):
+        flops = spgemm_ops.symbolic_flops_exact(a, b)
+        kernel = kwargs.get("kernel", "auto")
+        tiers, route = (spgemm_ops.auto_route(a, b, flops) if kernel == "auto"
+                        else ([], kernel))
+        products.append(dict(flops=flops, densedense_tiers=len(tiers), route=route))
+        state["route"] = route
+        return auto(a, b, **kwargs)
+
+    def keeping(name):
+        def call(*args, **kwargs):
+            key = (name, state.get("route"))
+            if key not in captured:
+                captured[key] = (args, kwargs)
+            return wrappers[name](*args, **kwargs)
+        return call
+
+    spgemm_ops.spgemm_auto = routed
+    for name, mod in modules.items():
+        setattr(mod, name, keeping(name))
+    try:
+        yield
+    finally:
+        spgemm_ops.spgemm_auto = auto
+        for name, mod in modules.items():
+            setattr(mod, name, wrappers[name])
+
+
+def engine_phase(dev, counters, reset_counts, h30, oracle30):
+    """Phase 4's einsum-engine path on the card; returns (its results, each
+    kernel's launches over the phase, each kernel's device ms summed over
+    one call of each held einsum, each kernel's max |error| against its
+    plain version on the phase's own inputs).  Raises on any failed check.
+    ``h30``: the 30^3 torus (HostCSR); ``oracle30``: the oracle's
+    A^2..A^7."""
+    from sparsetpu_torch import U64, SparseCSR
+    from sparsetpu_torch.attention.scores import attention_scores_dense, random_sparse_tensor
+    from sparsetpu_torch.bench import engine_bench, real_graphs, spgemm_bench
+    from sparsetpu_torch.einsum import engine
+    from sparsetpu_torch.grouped import GroupedCSR
+    from sparsetpu_torch.ops.spgemm import spgemm_auto
+    from sparsetpu_torch.semiring import F32SR
+    from sparsetpu_torch.utils import dense_btree
+
+    modules = {k: counters[k] for k in ENGINE_KERNELS}
+    a30 = SparseCSR.from_host_arrays(h30.row_ptr, h30.col_idx, U64.to_host_limbs(h30.vals),
+                                     h30.nnz, h30.n_rows, h30.n_cols, U64, dev)
+    out = {}
+    eng_ms = dict.fromkeys(counters, 0.0)
+    eng_err = {}
+
+    def held_einsum(label, spec, ops, **kwargs):
+        """One einsum twice: the first call under torch.profiler (each
+        kernel's device ms; its spgemm_auto products' routes), the second
+        by the host clock after a synchronisation, keeping each kernel's
+        first-call inputs, which are then held against the plain versions."""
+        products, captured = [], {}
+        with engine_kernel_inputs(modules, {}, products):
+            ms = profiled(lambda: engine.einsum(spec, ops, **kwargs), counters)[1]
+        for name, v in ms.items():
+            eng_ms[name] += v
+        for p in products:
+            print(f"[4] {label}: a product of {p['flops']:,} partial products -> route "
+                  f"{p['route']} ({p['densedense_tiers']} dense-dense tiers tried first)",
+                  flush=True)
+        before = {name: mod.LAUNCHES for name, mod in modules.items()}
+        with engine_kernel_inputs(modules, captured, []):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.einsum(spec, ops, **kwargs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launched = {name for name, mod in modules.items() if mod.LAUNCHES > before[name]}
+        compared = hold_kernels(label, captured, counters, eng_err)
+        check(launched <= compared, f"{label}: launched {sorted(launched)}, held against "
+              f"the plain version {sorted(compared)}")
+        return res, dict(seconds=secs, products=products, kernel_ms=ms,
+                         held=sorted(compared))
+
+    reset_counts()
+
+    # 1. engine_bench's four tiers at ER 27,000 x 8 (each engine result held
+    # against its direct call inside run; a disagreement raises)
+    details = {}
+    t0 = time.perf_counter()
+    csv = engine_bench.run(n=ENGINE_N, nnz_per_row=ENGINE_NNZ_PER_ROW, reps=2, iters=2,
+                           verbose=False, device=dev, details=details)
+    lines = csv.strip().split("\n")
+    check(lines[0] == engine_bench.HEADER and len(lines) == 12, f"engine_bench rows {lines}")
+    out["engine_bench"] = dict(rows={f"{r.split(',')[0]} {r.split(',')[1]}": float(r.split(',')[2])
+                                     for r in lines[1:]},
+                               details=details, seconds=time.perf_counter() - t0)
+    print(f"[4] engine_bench n={ENGINE_N} x {ENGINE_NNZ_PER_ROW}: every engine result == its "
+          f"direct call (dense bit for bit; sparse and chain the whole CSR; SpMM max |err| "
+          f"{details['spmm_max_abs_err']:.3e} within rtol {engine_bench.SPMM_RTOL}, atol "
+          f"{engine_bench.SPMM_ATOL}); routes A.B {details['spgemm']['route']} "
+          f"({details['spgemm']['flops']:,} products), (AB).C {details['chain']['route'][1]} "
+          f"({details['chain']['flops'][1]:,}); {out['engine_bench']['seconds']:.1f} s",
+          flush=True)
+    for line in lines[1:]:
+        print(f"[4] engine_bench {line}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 2. the chain tier on the 30^3 torus: A^3 against the oracle's whole CSR
+    (a3,), det = held_einsum("torus A^3 (engine)", "ab,bc,cd->ad", [a30, a30, a30], sr=U64,
+                             out_format="sparse")
+    spgemm_bench.check_against_oracle(a3, oracle30[1], "engine torus A^3")
+    check([p["flops"] for p in det["products"]] == [314_066, 938_569],
+          f"torus chain products {det['products']}")
+    out["torus_a3"] = dict(nnz=int(a3.nnz), **det)
+    print(f"[4] einsum ab,bc,cd->ad on the 30^3 torus: A^3 == the oracle's whole CSR (nnz "
+          f"{int(a3.nnz):,}); {det['seconds']:.4f} s", flush=True)
+
+    # 4. the exact entry-driven tier: sum of A^4 * A, A^4 = spgemm_auto(A^3, A)
+    a4 = spgemm_auto(a3, a30)
+    spgemm_bench.check_against_oracle(a4, oracle30[2], "torus A^4")
+    rp4, ci4, v4 = oracle30[2]
+    rp1, ci1, v1 = a30.to_numpy()
+    n30 = a30.n_rows
+    k4 = np.repeat(np.arange(n30, dtype=np.int64), np.diff(rp4)) * n30 + ci4
+    k1 = np.repeat(np.arange(n30, dtype=np.int64), np.diff(rp1.astype(np.int64))) * n30 + ci1
+    _, i4, i1 = np.intersect1d(k4, k1, assume_unique=True, return_indices=True)
+    want_sum = sum(int(x) * int(y) for x, y in zip(v4[i4], v1[i1]))
+    (tot,), det = held_einsum("torus A^4 . A (engine)", "ab,ab->", [a4, a30], sr=U64)
+    got_sum = int(tot[0]) | (int(tot[1]) << 32)
+    check(got_sum == want_sum, f"sum(A^4 * A) {got_sum} != numpy's {want_sum}")
+    out["exact_tier"] = dict(sum=got_sum, a4_entries=int(a4.nnz), a4_capacity=a4.capacity,
+                             **det)
+    print(f"[4] einsum ab,ab-> (exact entry-driven, u64) on A^4 ({int(a4.nnz):,} entries, "
+          f"capacity {a4.capacity:,}) and A: {got_sum:,} == numpy on the oracle's CSRs; "
+          f"{det['seconds']:.4f} s", flush=True)
+    del a3, a4
+    torch.cuda.empty_cache()
+
+    # 3. the chain tier on nell_pl: A^4 as (A.A).(A.A)
+    label, (r, c, v, n) = real_graphs.load_or_synthesize("nell", 65755, 251550)
+    a_nell = SparseCSR.from_coo_host(r, c, v, n, sr=U64, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (a4n,), det = held_einsum(f"{label} A^4 (engine)", "ab,bc,cd,de->ae", [a_nell] * 4,
+                              sr=U64, out_format="sparse")
+    check(int(a4n.nnz) == NELL_A4_NNZ, f"{label} A^4 nnz {int(a4n.nnz)} != {NELL_A4_NNZ}")
+    out["nell_a4"] = dict(nnz=int(a4n.nnz), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          **det)
+    print(f"[4] einsum ab,bc,cd,de->ae on {label}: A^4 nnz {int(a4n.nnz):,} == r5's; "
+          f"{det['seconds']:.4f} s; peak allocated {out['nell_a4']['peak_gb']:.2f} GB",
+          flush=True)
+    del a4n, a_nell
+    torch.cuda.empty_cache()
+
+    # 5. the grouped tier at GPT-2 117M: config 1's Q and K at density 1e-2
+    shape1 = (8, 1024, 12, 64)
+    q = random_sparse_tensor(shape1, 1e-2, seed=0)
+    k = random_sparse_tensor(shape1, 1e-2, seed=1)
+    g = shape1[0] * shape1[1]
+    gq = GroupedCSR.from_dense(q.reshape(g, 12, 64), sr=F32SR, device=dev)
+    gk = GroupedCSR.from_dense(np.swapaxes(k.reshape(g, 12, 64), 1, 2), sr=F32SR, device=dev)
+    (scores,), det = held_einsum("GPT-2 117M scores (engine)", "bij,bjk->bik", [gq, gk])
+    want = attention_scores_dense(torch.from_numpy(q).to(dev),
+                                  torch.from_numpy(k).to(dev)).reshape(g, 12, 12)
+    err = compare_close("grouped tier scores", scores, want, 1e-4, 1e-5)
+    out["grouped"] = dict(shape=list(scores.shape), max_abs_err=err, **det)
+    print(f"[4] einsum bij,bjk->bik on GroupedCSR (8,192, 12, 64) x (8,192, 64, 12), "
+          f"density 1e-2: == attention_scores_dense (max |err| {err:.3e}, rtol 1e-4, atol "
+          f"1e-5); {det['seconds']:.4f} s", flush=True)
+    del gq, gk, scores, want
+
+    # 6. the device btree: 2^24 sorted keys, 2^16 queries, half of them misses
+    gen = torch.Generator(dev).manual_seed(7)
+    keys = torch.cumsum(torch.randint(2, 256, (BTREE_KEYS,), generator=gen, device=dev), 0)
+    half = BTREE_QUERIES // 2
+    hits = keys[torch.randint(0, BTREE_KEYS, (half,), generator=gen, device=dev)]
+    # a key + 1 is never a key (gaps of 2 or more) nor above the last key
+    misses = keys[torch.randint(0, BTREE_KEYS - 1, (half,), generator=gen, device=dev)] + 1
+    qs = torch.cat([hits, misses])
+    levels, padded = dense_btree.build_device_btree(keys)
+    pos, hit = dense_btree.btree_lookup_device(levels, padded, qs)
+    want_pos = torch.searchsorted(keys, qs)
+    want_hit = keys[want_pos.clamp(max=BTREE_KEYS - 1)] == qs
+    check(torch.equal(pos, want_pos) and torch.equal(hit, want_hit)
+          and int(hit.sum()) == half, "btree (pos, hit) != searchsorted's")
+    bt_ms = time_ms(lambda: dense_btree.btree_lookup_device(levels, padded, qs), 10)
+    ss_ms = time_ms(lambda: torch.searchsorted(keys, qs), 10)
+    out["btree"] = dict(keys=BTREE_KEYS, queries=BTREE_QUERIES, levels=len(levels),
+                        btree_ms=bt_ms, searchsorted_ms=ss_ms)
+    print(f"[4] device btree, {BTREE_KEYS:,} keys ({len(levels)} levels), {BTREE_QUERIES:,} "
+          f"queries (half misses): (pos, hit) == torch.searchsorted + equality; btree "
+          f"{bt_ms:.4f} ms, searchsorted {ss_ms:.4f} ms", flush=True)
+    del keys, qs, padded, levels, pos, hit
+    torch.cuda.empty_cache()
+
+    counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+    check(counts["coalesce_blocks"] >= 1, f"einsum engine phase made no coalesce launch: {counts}")
+    held = {name for item in ("torus_a3", "exact_tier", "nell_a4", "grouped")
+            for name in out[item]["held"]}
+    out["launches"] = counts
+    print(f"[4] einsum engine phase: launches {counts}; held exactly against their plain "
+          f"versions: {sorted(held)}", flush=True)
+    return out, counts, eng_ms, eng_err
 
 
 def main() -> None:
@@ -1428,6 +1693,11 @@ def main() -> None:
     real, int8_rate, rg_launches, path_ms["real graphs"], rg_err = real_graph_phase(
         dev, counters, reset_counts)
 
+    # the einsum engine: engine_bench's tiers, the chain tier on the torus and
+    # nell, the exact entry-driven tier, the grouped tier, the device btree
+    engine_out, eng_launches, path_ms["einsum engine"], eng_err = engine_phase(
+        dev, counters, reset_counts, h30, oracle30)
+
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -1469,6 +1739,11 @@ def main() -> None:
             entry["real_graph_launches"] = rg_launches[name]
             entry["real_graph_pass_device_ms"] = path_ms["real graphs"][name]
             entry["real_graph_max_abs_err"] = rg_err.get(name)
+        # the einsum engine's path: its launches, the device ms of one call of
+        # each held einsum, the max |error| on its own inputs (None: not held)
+        entry["engine_launches"] = eng_launches[name]
+        entry["engine_pass_device_ms"] = path_ms["einsum engine"][name]
+        entry["engine_max_abs_err"] = eng_err.get(name)
         kernels.append(entry)
     print(json.dumps({"path_device_ms": path_ms, "rowcat_chain_steps_ms": rowcat_ms,
                       "pass": {name: {"launches": n, "device_ms": ms}
@@ -1484,6 +1759,7 @@ def main() -> None:
         str(r.step): r.seconds * 1e3 for r in results}, "mixed_densify_ms": t_dens * 1e3,
         "slab_paths": slab_paths}), flush=True)
     print(json.dumps({"real_graphs": real, "int8_panel_tops": int8_rate}), flush=True)
+    print(json.dumps({"einsum_engine": engine_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

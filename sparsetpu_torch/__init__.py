@@ -32,7 +32,10 @@ methods (``from_dense_device``, ``get``, ``lookup``, ``transpose``), numpy
 copies of ``utils.stdrng``, ``utils.oracle`` and ``einsum.parser``, the
 dense int8 pattern engine (``graphs.patterns``, ``torch._int_mm``), the
 graph algorithms (``graphs.algos``) and the real-graph study
-``python -m sparsetpu_torch.bench.real_graphs``.
+``python -m sparsetpu_torch.bench.real_graphs``.  Slice 8 adds the runtime
+einsum engine (``einsum.engine``, exported as ``einsum``), ``GroupedCSR``
+(``grouped``), the K-ary search tree (``utils.dense_btree``) and the engine
+benchmark ``python -m sparsetpu_torch.bench.engine_bench``.
 
 The JAX package's doctest, on the CPU (the entry points default to the
 card)::
@@ -57,8 +60,10 @@ card)::
 """
 
 from .csr import SparseCSR
+from .einsum.engine import einsum
+from .grouped import GroupedCSR
 from .ops.spgemm import spadd, spgemm, spgemm_auto, symbolic_flops
 from .semiring import F32SR, U32, U64, Semiring, by_name
 
-__all__ = ["F32SR", "U32", "U64", "Semiring", "by_name", "SparseCSR", "spadd", "spgemm",
-           "spgemm_auto", "symbolic_flops"]
+__all__ = ["F32SR", "U32", "U64", "Semiring", "by_name", "SparseCSR", "GroupedCSR", "einsum",
+           "spadd", "spgemm", "spgemm_auto", "symbolic_flops"]

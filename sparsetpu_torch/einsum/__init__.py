@@ -1,2 +1,7 @@
-"""Einsum of the port: the spec parser (``einsum.parser``), ported from
-``sparsetpu.einsum``; the engine is still to be ported."""
+"""Einsum of the port: the spec parser (``einsum.parser``, a copy of
+``sparsetpu.einsum.parser``) and the runtime engine (``einsum.engine``)."""
+
+from .engine import einsum
+from .parser import EinsumSpec, InvalidSpec, parse_spec, validate_dims
+
+__all__ = ["einsum", "EinsumSpec", "InvalidSpec", "parse_spec", "validate_dims"]

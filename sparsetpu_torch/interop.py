@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .csr import DEFAULT_DEVICE, SEMIRINGS, HostCSR, SparseCSR, resolve_device
+from .grouped import GroupedCSR
 from .kernels.blocksparse import BlockSparseMatrix
 from .semiring import by_name
 
@@ -78,3 +79,23 @@ def block_sparse_from_jax(blocks, block_rows, block_cols, shape, block_shape,
         block_cols=torch.tensor(np.asarray(block_cols, np.int32), device=device),
         shape=tuple(int(x) for x in shape),
         block_shape=tuple(int(x) for x in block_shape))
+
+
+def grouped_from_jax(row_ptr, col_idx, limbs, nnz, sr_name: str, g: int, n: int, m: int,
+                     device=DEFAULT_DEVICE) -> GroupedCSR:
+    """The port's ``GroupedCSR`` from the numpy arrays of a JAX
+    ``GroupedCSR``'s flat CSR (capacity and padding kept) and its (g, n, m)."""
+    flat = sparse_csr_from_jax(row_ptr, col_idx, limbs, nnz, g * n, g * m, sr_name, device)
+    return GroupedCSR(flat, int(g), int(n), int(m))
+
+
+def dense_limbs_from_jax(limbs, device=DEFAULT_DEVICE) -> Tuple[torch.Tensor, ...]:
+    """A JAX dense limb tuple (uint32 numpy arrays, or float32 for f32) as
+    the port's limb tensors on ``device``: uint32 widens to int64."""
+    device = resolve_device(device)
+    out = []
+    for l in limbs:
+        a = np.asarray(l)
+        a = a.astype(np.float32 if a.dtype.kind == "f" else np.int64)
+        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return tuple(out)

@@ -36,6 +36,9 @@ from ..csr import F32_EXACT_LIMIT, SparseCSR
 from ..semiring import Semiring
 from . import segments
 
+# the most bytes of D rows that spmm_csr_dense gathers at once
+GATHER_BYTES = 1 << 31
+
 
 def prepare_spmm_operand(a: SparseCSR, n_chunks: int = 8):
     """Host preprocessing of the static sparse operand: its entries split
@@ -94,16 +97,34 @@ def _valid_slots(a: SparseCSR):
 
 def spmm_csr_dense(a: SparseCSR, d: torch.Tensor) -> torch.Tensor:
     """C = A x D with A a one-limb (f32-carried) ``SparseCSR`` and D dense
-    f32 of shape (a.n_cols, m) or (a.n_cols,): one gather of D rows by A's
-    columns, scaled, summed by row; it never leaves the device.  Exact for
-    integer counts < 2^24 carried in f32."""
+    f32 of shape (a.n_cols, m) or (a.n_cols,): a gather of D rows by A's
+    columns, scaled, summed by row; it never leaves the device.  The
+    (capacity, m) gather runs in column panels of at most ``GATHER_BYTES``
+    (the JAX package gathers all columns at once: 23 GB at 216,000 entries x
+    27,000 columns); each output element sums the same terms either way.
+    Exact for integer counts < 2^24 carried in f32."""
     if d.shape[0] != a.n_cols or d.dim() not in (1, 2):
         raise ValueError(f"D of shape {tuple(d.shape)} does not fit A {a.shape}")
     valid, rows, cols = _valid_slots(a)
     v = torch.where(valid, a.values[0].float(), 0.0)
-    g = d[cols] * (v[:, None] if d.dim() == 2 else v)
-    out = torch.zeros((a.n_rows + 1,) + tuple(d.shape[1:]), dtype=g.dtype, device=d.device)
-    return out.index_add_(0, rows, g)[:a.n_rows]
+    if d.dim() == 1:
+        g = d[cols] * v
+        out = torch.zeros(a.n_rows + 1, dtype=g.dtype, device=d.device)
+        return out.index_add_(0, rows, g)[:a.n_rows]
+    m = d.shape[1]
+    w = max(1, GATHER_BYTES // (d.element_size() * max(a.capacity, 1)))
+    c = None
+    for c0 in range(0, m, w):
+        g = d[cols, c0:c0 + w] * v[:, None]
+        panel = torch.zeros((a.n_rows + 1, g.shape[1]), dtype=g.dtype, device=d.device)
+        panel = panel.index_add_(0, rows, g)[:a.n_rows]
+        del g
+        if w >= m:
+            return panel
+        if c is None:
+            c = torch.empty((a.n_rows, m), dtype=panel.dtype, device=d.device)
+        c[:, c0:c0 + w] = panel
+    return c
 
 
 def dense_to_csr(c_dense: torch.Tensor, sr: Semiring,
