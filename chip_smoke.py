@@ -116,6 +116,26 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    and once timed, that call's kernels' first-call inputs held exactly
    against their plain versions (every kernel it launched; those launches
    not counted); at least one coalesce launch.
+   Then row-partitioned execution (``sparsetpu_torch/dist``, no kernel of
+   the six on its path: each rank reports 0 launches) on the same 30^3
+   torus: the sharded ESC chain A^2..A^7 with the product kept sharded,
+   first on one rank over NCCL (every step's (nnz, max) against the
+   published table, unshard(A^4) and unshard(A^7) equal to the oracle's
+   whole CSR, each step's ms beside the esc chain's total from this run),
+   then on four ranks sharing the card over gloo (the same checks, each
+   step's work imbalance, unshard(A^7) equal to the one-rank result bit for
+   bit; the ring A^2 x A^2 -> A^4 and A^3 x A^4 -> A^7 with both operands
+   sharded, each equal to the one-rank product bit for bit, with its
+   step_cap and out_cap; the sharded band product of the torus's cyclic
+   band, block 125, half-width 1,799, 54 of 216 block rows a rank, equal to
+   the unsharded band_matmul bit for bit, nnz 248,957); the one- and
+   four-rank worlds then also run the scaling chain (--steps 2) and the
+   four-rank world dryrun_multichip's program (ESC, ring and band A^2
+   agree); a two-rank world adds the scaling chain's last row, and
+   reports/scaling_h100.csv is written as the scaling CLI writes it, with
+   its sharing caveat; then memcross on a tipover CSV of the attention
+   path's rows and the report over the phase's CSVs, both into a temporary
+   directory.
    Each path runs under torch.profiler, and every kernel's device time is
    summed over it, warm-ups and repetitions included; one pass of each
    path (one untimed call of each step: a chain's steps once, one product a
@@ -126,13 +146,15 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    call, for dense-acc, sort-merge and coalesce the real-graph path's
    launches, first-call device time and max |error| on its inputs, and for
    every kernel the einsum engine phase's launches, the device ms of its
-   profiled calls and the max |error| on its inputs), the card line, and
-   the contract line
+   profiled calls and the max |error| on its inputs), the dist phase's
+   line (step times, transports, ring capacities, imbalance, the band, the
+   scaling rows, the dry run), the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
 """
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -769,6 +791,172 @@ def engine_phase(dev, counters, reset_counts, h30, oracle30):
     return out, counts, eng_ms, eng_err
 
 
+DIST_RANKS = 4                # ranks sharing the one card over gloo
+RING_PAIRS = ((2, 2), (3, 4))  # A^2 x A^2 -> A^4, A^3 x A^4 -> A^7, both operands sharded
+SCALING_STEPS, SCALING_ITERS = 2, 2  # the scaling rows: --steps 2 --iters 2
+BAND_A2_NNZ = EXPECTED[0][1]
+
+
+def same_csr(got, want) -> bool:
+    """Two host CSRs (row_ptr, col_idx, vals) hold the same entries, bit for
+    bit."""
+    rp, ci, v = got
+    wrp, wci, wv = want
+    nnz = int(wrp[-1])
+    return (np.array_equal(np.asarray(rp, np.int64), np.asarray(wrp, np.int64))
+            and np.array_equal(np.asarray(ci), np.asarray(wci)[:nnz])
+            and np.array_equal(np.asarray(v, np.uint64), np.asarray(wv, np.uint64)[:nnz]))
+
+
+def dist_phase(dev, counters, reset_counts, h30, oracle30, esc_chain_ms, att_rows):
+    """Row-partitioned execution (``sparsetpu_torch/dist``) on the full 30^3
+    torus; raises on any failed check.  ``oracle30``: the oracle's A^2..A^7;
+    ``esc_chain_ms``: the esc chain's total in this run; ``att_rows``: the
+    attention path's tipover rows by density.  Returns the phase's record."""
+    import tempfile
+
+    from sparsetpu_torch import entry
+    from sparsetpu_torch.bench import chain as tchain, configs, memcross, report, scaling
+    from sparsetpu_torch.bench.chain import BAND_BLOCKS
+    from sparsetpu_torch.bench.tipover import HEADER
+    from sparsetpu_torch.dist import multihost, programs
+    from sparsetpu_torch.kernels import bandmm
+
+    t_phase = time.perf_counter()
+    cfg = configs.CHAIN_CONFIGS["torus30"]
+    n = h30.n_rows
+    check((cfg.dims, cfg.density, cfg.seed, cfg.n, h30.nnz) == (DIMS30, 3.0 / 26.0, 42, n, 80_882),
+          f"configs torus30 {cfg} is not the smoke's 30^3 torus")
+    arrays = (h30.row_ptr, h30.col_idx, h30.vals, n, n, h30.sr_name)
+    # the band of the band chain: configs' nominal half-width (931) leaves
+    # 606 entries of the thinned torus outside; its cyclic bandwidth none
+    half_width = bandmm.cyclic_bandwidth(h30)
+    torch.cuda.empty_cache()
+    reset_counts()
+    out = {}
+
+    # one rank on NCCL: the sharded chain, the product kept sharded; then
+    # the scaling chain's one-rank row
+    scaling_args = (arrays, SCALING_STEPS, SCALING_ITERS)
+    check(multihost.world_backend(1, dev) == "nccl", "one rank on the card is not over NCCL")
+    t0 = time.perf_counter()
+    (one, one_sp), = multihost.run_local(programs.run_all, 1, [
+        ("smoke", (arrays, STEPS, 3, (4, STEPS), (), None)),
+        ("scaling_point", scaling_args)])
+    t_one = time.perf_counter() - t0
+    check(one["transport"] == "nccl", f"one rank ran over {one['transport']}")
+    got = [(r["step"], r["nnz"], r["max"]) for r in one["steps"]]
+    check(got == EXPECTED, f"sharded chain, 1 rank: (step, nnz, max) {got} != {EXPECTED}")
+    check(same_csr(one["wholes"][4], oracle30[2]), "1 rank: unshard(A^4) != the oracle's")
+    check(same_csr(one["wholes"][STEPS], oracle30[-1]), "1 rank: unshard(A^7) != the oracle's")
+    chain_ms = sum(r["ms"] for r in one["steps"])
+    print(f"[4] dist, 1 rank over nccl: per-step (nnz, max) == published table; unshard(A^4), "
+          f"unshard(A^{STEPS}) == the oracle's whole CSR", flush=True)
+    for r in one["steps"]:
+        print(f"[4] dist 1 rank A^{r['step']} step: {r['ms']:.4f} ms (flop read included; "
+              f"expand_cap {r['expand_cap']})", flush=True)
+    print(f"[4] dist 1 rank chain total A^2..A^{STEPS}: {chain_ms:.4f} ms; the esc chain in this "
+          f"run: {esc_chain_ms:.4f} ms; world {t_one:.1f} s", flush=True)
+    out["one_rank"] = {"transport": one["transport"], "world_s": t_one, "chain_ms": chain_ms,
+                       "steps": one["steps"], "esc_chain_ms": esc_chain_ms}
+
+    # four ranks sharing the card over gloo: the chain, the ring, the band;
+    # then the scaling chain's four-rank row and the dry run
+    check(multihost.world_backend(DIST_RANKS, dev) == "gloo",
+          f"{DIST_RANKS} ranks on {torch.cuda.device_count()} card(s) are not over gloo")
+    t0 = time.perf_counter()
+    four = multihost.run_local(programs.run_all, DIST_RANKS, [
+        ("smoke", (arrays, STEPS, 2, (STEPS,), RING_PAIRS, (half_width, BAND_BLOCKS[n]))),
+        ("scaling_point", scaling_args), ("dryrun", ())])
+    t_four = time.perf_counter() - t0
+    r0 = four[0][0]
+    check({r[0]["transport"] for r in four} == {"gloo"}, "the shared-card ranks are not over gloo")
+    got = [(r["step"], r["nnz"], r["max"]) for r in r0["steps"]]
+    check(got == EXPECTED, f"sharded chain, {DIST_RANKS} ranks: (step, nnz, max) {got}")
+    check(same_csr(r0["wholes"][STEPS], one["wholes"][STEPS]),
+          f"{DIST_RANKS} ranks: unshard(A^{STEPS}) != the 1-rank result")
+    want_ring = {(2, 2): (4, EXPECTED[2][1]), (3, 4): (STEPS, EXPECTED[-1][1])}
+    for ring in r0["ring"]:
+        k, nnz = want_ring[(ring["p"], ring["q"])]
+        check(ring["nnz"] == nnz, f"ring A^{ring['p']} x A^{ring['q']} nnz {ring['nnz']} != {nnz}")
+        check(same_csr(ring["whole"], one["wholes"][k]),
+              f"ring A^{ring['p']} x A^{ring['q']} != the 1-rank A^{k}, bit for bit")
+    band = r0["band"]
+    check(band["bit_equal"] and band["nnz"] == BAND_A2_NNZ and band["nb"] == 216
+          and band["nb_local"] == 216 // DIST_RANKS,
+          f"sharded band product {band} is not the unsharded one with nnz {BAND_A2_NNZ}")
+    launches = [dict(r["launches"]) for r in [one] + [r[0] for r in four]]
+    check(all(not any(l.values()) for l in launches),
+          f"a kernel wrapper launched on the dist path: {launches}")
+    for r in r0["steps"]:
+        print(f"[4] dist {DIST_RANKS} ranks A^{r['step']} step: {r['ms']:.4f} ms; "
+              f"work_imbalance {r['imbalance']:.4f}", flush=True)
+    for ring in r0["ring"]:
+        print(f"[4] dist ring A^{ring['p']} x A^{ring['q']}: nnz {ring['nnz']}, == the 1-rank "
+              f"product bit for bit; step_cap {ring['step_cap']}, out_cap {ring['out_cap']}; "
+              f"{ring['ms']:.4f} ms", flush=True)
+    print(f"[4] dist, {DIST_RANKS} ranks over gloo (one card): (nnz, max) == published table, "
+          f"unshard(A^{STEPS}) == the 1-rank result bit for bit; band A^2 (block "
+          f"{band['block']}, half-width {band['half_width']}, {band['nb']} block rows, "
+          f"{band['nb_local']} a rank) == the unsharded band_matmul bit for bit, nnz "
+          f"{band['nnz']}, {band['ms']:.4f} ms; world {t_four:.1f} s; no kernel wrapper "
+          f"launched in any rank", flush=True)
+    out["four_ranks"] = {"transport": "gloo", "world_s": t_four, "steps": r0["steps"],
+                         "chain_ms": sum(r["ms"] for r in r0["steps"]),
+                         "ring": [{k: v for k, v in ring.items() if k != "whole"}
+                                  for ring in r0["ring"]], "band": band}
+
+    # the scaling rows at 1, 2 and 4 ranks (--steps 2): the 2-rank world
+    # here, the others from the worlds above; the CSV as the CLI writes it
+    t0 = time.perf_counter()
+    two_sp = multihost.run_local(programs.scaling_point, 2, *scaling_args)[0]
+    t_two = time.perf_counter() - t0
+    points = scaling.scale_points([(1, one_sp), (2, two_sp), (DIST_RANKS, four[0][1])])
+    text = scaling.write_csv(points, "cuda", f"{cfg.name} (n={n}, nnz={h30.nnz}), steps="
+                             f"{SCALING_STEPS}, iters={SCALING_ITERS}", "reports/scaling_h100.csv")
+    check([p.transport for p in points] == ["nccl", "gloo", "gloo"]
+          and f"hardware_meaningful=NO for seconds/nnz_per_s/efficiency at devices=[2, "
+              f"{DIST_RANKS}]" in text, f"scaling CSV:\n{text}")
+    out["scaling"] = {"world_s": t_two, "points": [vars(p) for p in points]}
+
+    # the dry run's verdict, then memcross and the report on the phase's CSVs
+    dry = entry.dryrun_verdict(DIST_RANKS, four[0][2])
+    out["dryrun"] = dry
+    with tempfile.TemporaryDirectory() as tmp:
+        first = att_rows[min(att_rows)][0]
+        rows = [",".join(r[impl]) for _, r in (att_rows[d] for d in sorted(att_rows))
+                for impl in ("esc", "sdd") if impl in r]
+        with open(os.path.join(tmp, "tipover_results_1.csv"), "w") as f:
+            f.write("\n".join([first, HEADER] + rows) + "\n")
+        memcross.main(["--dir", tmp, "--configs", "1", "--out",
+                       os.path.join(tmp, "memory_crossover.csv")])
+        with open(os.path.join(tmp, "memory_crossover.csv")) as f:
+            mem = [l for l in f.read().split("\n") if l.startswith("1,")]
+        n_esc = sum("esc" in r for _, r in att_rows.values())
+        check(len(mem) == n_esc, f"memcross gave {len(mem)} rows for {n_esc} ESC densities")
+        steps = [tchain.ChainStep(step=r["step"], nnz=r["nnz"], flops=r["flops"],
+                                  seconds=r["ms"] / 1e3, nnz_per_s=r["nnz"] / (r["ms"] / 1e3),
+                                  gflops=2.0 * r["flops"] / (r["ms"] / 1e3) / 1e9)
+                 for r in one["steps"]]
+        with open(os.path.join(tmp, "chain_sharded_1rank.csv"), "w") as f:
+            f.write(tchain.chain_csv(steps))
+        with open(os.path.join(tmp, "scaling_h100.csv"), "w") as f:
+            f.write(text)
+        report.main(["--bench-dir", tmp, "--out", os.path.join(tmp, "report.md")])
+        with open(os.path.join(tmp, "report.md")) as f:
+            md = f.read()
+        for title in ("chain_sharded_1rank.csv", "tipover_results_1.csv", "scaling_h100.csv"):
+            check(f"### {title}" in md, f"the report lacks the {title} table")
+    out["memcross_rows"] = mem
+    counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[4] dist: scaling CSV written (reports/scaling_h100.csv, the sharing caveat in its "
+          f"header); dryrun_multichip({DIST_RANKS}) {dry}; memcross {len(mem)} rows; report "
+          f"{len(md)} chars; parent's launches {counts}; phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -809,6 +997,10 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    t_start = time.perf_counter()
+
+    def since_start(what):
+        print(f"[t] {what} starts at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- phase 1: card identity
     print(f"[1] card: {card} | torch: {kind} | count={torch.cuda.device_count()} "
@@ -829,6 +1021,7 @@ def main() -> None:
             print(f"    nvcc: {line.strip()}")
     print(f"[2] built kernels in {t_kernels:.2f}s, oracle in {t_oracle:.2f}s", flush=True)
 
+    since_start("phase 3 (kernels against their plain versions)")
     # ---- phase 3: each kernel against its plain version
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1373,6 +1566,7 @@ def main() -> None:
     timing["coalesce_blocks"] = dict(main_t, **{f"er_{key}": v for key, v in er_t.items()})
     torch.cuda.empty_cache()
 
+    since_start("phase 4 (the chains)")
     # ---- phase 4: the port's paths at full scale
     t0 = time.perf_counter()
     oracle30 = []  # the oracle's A^2..A^7, shared by the CSR chains' checks
@@ -1435,6 +1629,7 @@ def main() -> None:
         print(f"[4] {path} chain total A^2..A^{STEPS}: {chain_ms[kernel]:.4f} ms; "
               f"A^{STEPS} nnz/s: {results[-1].nnz_per_s:.1f}", flush=True)
 
+    since_start("the rowcat chain")
     # the router's "esc" route: the 30^3 torus at --steps 4 rides the rowcat
     # chain, as bench.py maps it; every step's whole CSR against the oracle
     steps_esc = 4
@@ -1455,6 +1650,7 @@ def main() -> None:
           f"included: {', '.join(f'A^{k} {v:.4f} ms' for k, v in rowcat_ms.items())}; "
           f"total {sum(rowcat_ms.values()):.4f} ms; launches {counts}", flush=True)
 
+    since_start("the attention path")
     # the attention-scores path at GPT-2 117M, one density at a time
     att_rows, sdd_launches = {}, 0
     path_ms["attention"] = dict.fromkeys(counters, 0.0)
@@ -1486,6 +1682,7 @@ def main() -> None:
               f"scores (rtol 1e-4, atol 1e-5); launches {counts}", flush=True)
     launches["sdd_block_scores"] = sdd_launches
 
+    since_start("the general-SpGEMM sweep")
     # the general-SpGEMM sweep, one graph at a time, JAX's eight algorithms;
     # then spgemm_auto on the same graph
     sweep, sm_launches, da_launches, auto = {}, 0, 0, {}
@@ -1572,6 +1769,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     launches["sortmerge_rows"] = sm_launches
 
+    since_start("the mixed chain, slab and colchunk")
     # the mixed chain: slab ESC A^2..A^4, densify, dense-acc A^5..A^7
     one_pass("coalesce_blocks", lambda: run_chain_mixed(
         h30, dev, max_step=STEPS, switch_step=5, iters=1, native_stats=stats))
@@ -1648,6 +1846,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     del a_er
 
+    since_start("the chain's other forms")
     # the chain's other forms (bench.py --algo esc, escb, dense, band) on the
     # 30^3 torus: every step against the published table; esc and escb
     # against the oracle's whole CSR at every step (the products computed
@@ -1689,15 +1888,24 @@ def main() -> None:
               f"total {sum(other_chains[algo].values()):.4f} ms ({timed}); path "
               f"{t_path:.1f} s; launches {counts}", flush=True)
 
+    since_start("the real-graph phase")
     # the real-graph study on the power-law substitutes at the published sizes
     real, int8_rate, rg_launches, path_ms["real graphs"], rg_err = real_graph_phase(
         dev, counters, reset_counts)
 
+    since_start("the einsum engine phase")
     # the einsum engine: engine_bench's tiers, the chain tier on the torus and
     # nell, the exact entry-driven tier, the grouped tier, the device btree
     engine_out, eng_launches, path_ms["einsum engine"], eng_err = engine_phase(
         dev, counters, reset_counts, h30, oracle30)
 
+    since_start("the dist phase")
+    # row-partitioned execution: one rank on NCCL, four ranks sharing the
+    # card over gloo, the scaling CLI, the dry run, memcross and the report
+    dist_out = dist_phase(dev, counters, reset_counts, h30, oracle30,
+                          sum(other_chains["esc"].values()), att_rows)
+
+    since_start("phase 5 (results)")
     # ---- phase 5: results
     meta = {
         "spmm_dense_acc": ("sparsetpu_torch/csrc/spmm_dense_acc.cu",
@@ -1760,6 +1968,7 @@ def main() -> None:
         "slab_paths": slab_paths}), flush=True)
     print(json.dumps({"real_graphs": real, "int8_panel_tops": int8_rate}), flush=True)
     print(json.dumps({"einsum_engine": engine_out}), flush=True)
+    print(json.dumps({"dist": dist_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .csr import DEFAULT_DEVICE, SEMIRINGS, HostCSR, SparseCSR, resolve_device
+from .dist.shard import ShardedCSR
 from .grouped import GroupedCSR
 from .kernels.blocksparse import BlockSparseMatrix
 from .semiring import by_name
@@ -99,3 +100,19 @@ def dense_limbs_from_jax(limbs, device=DEFAULT_DEVICE) -> Tuple[torch.Tensor, ..
         a = a.astype(np.float32 if a.dtype.kind == "f" else np.int64)
         out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
     return tuple(out)
+
+
+def sharded_from_jax(row_ptr, col_idx, limbs, nnz, rank: int, n_rows: int, n_cols: int,
+                     sr_name: str, device=DEFAULT_DEVICE) -> ShardedCSR:
+    """Shard ``rank`` of a JAX ``ShardedCSR`` in the port's rank-local form,
+    from the numpy arrays of its fields (``row_ptr`` [nd, n_local + 1],
+    ``col_idx`` and each limb [nd, capacity], ``nnz`` [nd]): capacity and
+    padding kept, uint32 limbs widened to the port's int64."""
+    row_ptr = np.asarray(row_ptr)
+    nd, n_local = row_ptr.shape[0], row_ptr.shape[1] - 1
+    local = sparse_csr_from_jax(row_ptr[rank], np.asarray(col_idx)[rank],
+                                [np.asarray(l)[rank] for l in limbs], int(np.asarray(nnz)[rank]),
+                                n_local, n_cols, sr_name, device)
+    return ShardedCSR(row_ptr=local.row_ptr, col_idx=local.col_idx, values=local.values,
+                      nnz=local.nnz, n_rows=int(n_rows), n_cols=int(n_cols), sr_name=sr_name,
+                      n_local=n_local, n_shards=nd, rank=rank)
