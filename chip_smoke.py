@@ -277,10 +277,14 @@ def bound(nbytes: float, flops: float = 0.0, flops_per_s: float = FP32_FLOPS_PER
 def csr_spmm_bytes(row_ptr, cols, n_rows: int, width_in: int, width_out: int,
                    value_bytes: float) -> float:
     """Compulsory bytes of C = A x P: A's arrays, each distinct P row that A
-    references (width_in f32) once, and C (width_out f32 a row) once."""
-    distinct = torch.unique(cols).numel()
-    return (row_ptr.numel() * 4 + value_bytes + cols.numel() * 4
-            + distinct * width_in * 4 + n_rows * width_out * 4)
+    references (width_in f32) once, and C (width_out f32 a row) once, by the
+    program's rule (``kernels.spmm.csr_spmm_bytes``, which its launch spans
+    carry), the distinct columns counted here on the card."""
+    from sparsetpu_torch.kernels import spmm
+
+    check(row_ptr.numel() == n_rows + 1, f"{row_ptr.numel()} row offsets for {n_rows} rows")
+    return spmm.csr_spmm_bytes(n_rows, cols.numel(), torch.unique(cols).numel(), width_in,
+                               width_out, value_bytes)
 
 
 def profiled(fn, kernels):
@@ -1145,6 +1149,10 @@ def main() -> None:
                                     o.vals.numel() * 4),
                      2.0 * o.col_idx.numel() * n30)
 
+    # the launch span's bytes (distinct columns counted on the host) are the bound's
+    check(spmm.launch_bytes(op, n30) == csr_spmm_bytes(op.row_ptr, op.col_idx, n30, n30, n30,
+                                                       op.vals.numel() * 4),
+          "spmm_dense_acc: the launch span's bytes differ from the bound's")
     # dense-acc and group-dot compute the same function: one bound for both
     (b_ms, b_by), full_b_ms = spmm_bound(op_slice, SLICE_ROWS), spmm_bound(op, n30)[0]
     timing["spmm_dense_acc"] = dict(

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import obs
 from .ops import segments
 from .ops.segments import INT32_SENTINEL, KEY_SENTINEL
 from .semiring import U64, Semiring, Value, by_name
@@ -236,22 +237,26 @@ class SparseCSR:
         """COO -> CSR on the device: sort by (row, col), merge duplicates with
         the semiring's add, drop zeros, no host synchronisation.  ``values``
         may carry fewer limbs than the semiring (u64 carried narrow in one
-        limb, ``ops/spgemm.expand_products``); the output is always full."""
+        limb, ``ops/spgemm.expand_products``); the output is always full.
+        Under a profiler the sort and the merge are the spans ``esc/sort``
+        and ``esc/merge`` (``obs``): the compress stage of the ESC SpGEMM."""
         if (n_rows + 1) * n_cols >= KEY_SENTINEL:
             raise ValueError(f"({n_rows}, {n_cols}) does not fit an int64 (row, col) key")
         device = rows.device
         if valid is None:
             valid = torch.ones(rows.shape, dtype=torch.bool, device=device)
-        key = torch.where(valid, rows.long() * n_cols + cols.long(), KEY_SENTINEL)
-        key, perm = torch.sort(key, stable=True)
-        payload = tuple(torch.where(valid, l, 0)[perm] for l in values)
-        (fused,), out_vals, nnz = segments.reduce_sorted_coo(
-            sr, [key], payload, key != KEY_SENTINEL, capacity, key_fills=[KEY_SENTINEL])
-        in_range = torch.arange(capacity, device=device) < nnz
-        out_rows = torch.where(in_range, fused // n_cols, n_rows)
-        col_idx = torch.where(in_range, fused % n_cols, INT32_SENTINEL).int()
-        row_ptr = torch.searchsorted(
-            out_rows, torch.arange(n_rows + 1, device=device), side="left").int()
+        with obs.span("esc/sort"):
+            key = torch.where(valid, rows.long() * n_cols + cols.long(), KEY_SENTINEL)
+            key, perm = torch.sort(key, stable=True)
+            payload = tuple(torch.where(valid, l, 0)[perm] for l in values)
+        with obs.span("esc/merge"):
+            (fused,), out_vals, nnz = segments.reduce_sorted_coo(
+                sr, [key], payload, key != KEY_SENTINEL, capacity, key_fills=[KEY_SENTINEL])
+            in_range = torch.arange(capacity, device=device) < nnz
+            out_rows = torch.where(in_range, fused // n_cols, n_rows)
+            col_idx = torch.where(in_range, fused % n_cols, INT32_SENTINEL).int()
+            row_ptr = torch.searchsorted(
+                out_rows, torch.arange(n_rows + 1, device=device), side="left").int()
         # capacity overflow poisons nnz to -1: the host guard check() raises
         # rather than let a truncated matrix pass
         return SparseCSR(row_ptr=row_ptr, col_idx=col_idx, values=tuple(out_vals),
@@ -329,7 +334,7 @@ class SparseCSR:
 
     def check(self) -> "SparseCSR":
         """Host guard: raise if a capacity overflow poisoned this matrix."""
-        if int(self.nnz) < 0:
+        if obs.item(self.nnz, "check") < 0:
             raise ValueError(
                 "SparseCSR capacity overflow: an operation produced more "
                 "entries than its capacity (nnz poisoned to -1); "

@@ -37,8 +37,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import _build
-from .spmm import SparseOperand, _entry_rows, check_out
+from .spmm import SparseOperand, _entry_rows, check_out, csr_spmm_bytes
 
 QUANTUM = 32  # the GPU chain's window quantum, in columns (128 B)
 
@@ -189,12 +190,26 @@ def _check(bop: BandOperand, p: torch.Tensor, out: Optional[torch.Tensor]) -> No
     check_out(out, (op.n_rows, bop.w_out), p)
 
 
+def launch_bytes(bop: BandOperand) -> Optional[int]:
+    """The least bytes of one ``spmm_band`` launch: A's arrays and both
+    window starts, each distinct source window (``w_in`` f32) once and C's
+    windows once (``csr_spmm_bytes``); None where A's distinct columns were
+    not counted."""
+    op = bop.a
+    if op.distinct_cols is None:
+        return None
+    nnz = op.col_idx.numel()
+    return csr_spmm_bytes(op.n_rows, nnz, op.distinct_cols, bop.w_in, bop.w_out,
+                          4 * nnz + 4 * (op.n_cols + op.n_rows))
+
+
 def spmm_band(bop: BandOperand, p: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C_band = A x P_band: P_band is (n_cols, w_in) in the step's input
     layout, C_band (n_rows, w_out) in its output layout.  On CUDA: one launch
-    of the hand-written kernel on the current stream, without synchronising.
-    On the CPU: the plain version."""
+    of the hand-written kernel on the current stream, without synchronising;
+    under a profiler it is the span ``kernel/spmm_band`` with its
+    ``launch_bytes`` (``obs``).  On the CPU: the plain version."""
     global LAUNCHES
     _check(bop, p, out)
     if p.device.type == "cpu":
@@ -210,7 +225,7 @@ def spmm_band(bop: BandOperand, p: torch.Tensor,
     lib = _build.load()
     if op.n_rows >= 2**31 or bop.w_out > lib.spmm_band_max_cols():
         raise ValueError(f"({op.n_rows}, {bop.w_out}) exceeds the kernel's launch grid")
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(p.device), obs.kernel("spmm_band", launch_bytes, bop):
         err = lib.spmm_band_f32(
             op.row_ptr.data_ptr(), op.col_idx.data_ptr(), op.vals.data_ptr(),
             bop.base_in.data_ptr(), bop.base_out.data_ptr(),

@@ -31,6 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import DEFAULT_DEVICE, resolve_device
 from . import _build
 from .spmm import tf32_enabled
@@ -172,7 +173,10 @@ def sdd_block_scores(q: torch.Tensor, k: torch.Tensor, qi: torch.Tensor,
     q: f32[M, D], k: f32[N, D]; qi, ki: int32[T] block indices.  Returns
     f32[T, bm, bn].  On CUDA: one launch of the hand-written kernel on the
     current stream, without synchronising; it takes bm = bn = 128 and D a
-    multiple of 8 and raises on anything else.  On the CPU: the plain
+    multiple of 8 and raises on anything else.  Under a profiler the launch
+    is the span ``kernel/sdd_block_scores`` (``obs``), without ``bytes=``:
+    the Q and K blocks it must read are the distinct ones of qi and ki,
+    which only a read of the device would count.  On the CPU: the plain
     version."""
     global LAUNCHES
     _check(q, k, qi, ki, block_m, block_n)
@@ -194,7 +198,7 @@ def sdd_block_scores(q: torch.Tensor, k: torch.Tensor, qi: torch.Tensor,
     lib = _build.load()
     if t > lib.sdd_block_scores_max_pairs():
         raise ValueError(f"{t} pairs exceed the kernel's launch grid")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), obs.kernel("sdd_block_scores"):
         err = lib.sdd_block_scores_f32(
             q.data_ptr(), k.data_ptr(), qi.data_ptr(), ki.data_ptr(), out.data_ptr(),
             t, m, n, d, torch.cuda.current_stream(q.device).cuda_stream)

@@ -37,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import obs
 from ..ops import segments
 from . import _build
 
@@ -113,7 +114,10 @@ def coalesce_blocks(offs: torch.Tensor, streams: Sequence[torch.Tensor], out_cap
 
     On CUDA: one launch of the kernel on the current stream, without
     synchronising; the streams may be contiguous views at any element
-    offset.  On the CPU: the plain version."""
+    offset.  Under a profiler the launch is the span
+    ``kernel/coalesce_blocks`` (``obs``), without ``bytes=``: the survivors
+    it reads number offs[nb], which only a read of the device would give.
+    On the CPU: the plain version."""
     global LAUNCHES
     fills = [0] * len(streams) if fills is None else list(fills)
     _check(offs, streams, out_cap, fills)
@@ -135,7 +139,7 @@ def coalesce_blocks(offs: torch.Tensor, streams: Sequence[torch.Tensor], out_cap
     wide = sum(1 << k for k, s in enumerate(streams) if s.element_size() == 8)
     bits = [_fill_bits(f, s.dtype) for f, s in zip(fills, streams)]
     bits += [0] * (MAX_STREAMS - len(bits))
-    with torch.cuda.device(offs.device):
+    with torch.cuda.device(offs.device), obs.kernel("coalesce_blocks"):
         err = lib.coalesce_blocks(
             offs.data_ptr(), nb, L, out_cap, len(streams), wide, *ptrs_in, *ptrs_out,
             block_id.data_ptr(), *bits, torch.cuda.current_stream(offs.device).cuda_stream)

@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import F32_EXACT_LIMIT, HostCSR
 from . import _build
 from .spmm import check_out, tf32_enabled
@@ -65,6 +66,7 @@ class GroupOperand:
     n_cols: int
     rows_per_tile: int
     g: int
+    distinct_cols: Optional[int] = None  # columns A references, counted on the host
 
     @property
     def n_tiles(self) -> int:
@@ -113,7 +115,8 @@ def prepare_group_operand(a: HostCSR, device, rows_per_tile: int = ROWS_PER_TILE
         torch.from_numpy(group_ptr.astype(np.int32)).to(device),
         torch.from_numpy(cols).to(device), torch.from_numpy(m).to(device),
         torch.from_numpy(m8).to(device), torch.from_numpy(counts.astype(np.int32)).to(device),
-        a.n_rows, a.n_cols, r, g)
+        a.n_rows, a.n_cols, r, g,
+        int(np.count_nonzero(np.bincount(a.col_idx, minlength=a.n_cols))))
 
 
 def _sum_tiles(gop: GroupOperand, prod: torch.Tensor) -> torch.Tensor:
@@ -182,13 +185,27 @@ def _check(gop: GroupOperand, p: torch.Tensor, out: Optional[torch.Tensor]) -> N
     check_out(out, (gop.n_rows, p.shape[1]), p)
 
 
+def launch_bytes(gop: GroupOperand, m: int) -> Optional[int]:
+    """The least bytes of one ``spmm_group_dot`` launch with P of ``m``
+    columns: the operand as the kernel reads it (tile offsets and counts,
+    every slot's column, the u8 tile matrices), each distinct P row that A
+    references once and C once; None where A's distinct columns were not
+    counted."""
+    if gop.distinct_cols is None:
+        return None
+    return (4 * (gop.group_ptr.numel() + gop.count.numel() + gop.cols.numel())
+            + gop.m8.numel() + 4 * gop.distinct_cols * m + 4 * gop.n_rows * m)
+
+
 def spmm_group_dot(gop: GroupOperand, p: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = A x P for P of integers in [0, 2^24).  On CUDA: one launch of the
     hand-written kernel on the current stream, without synchronising; a
     warp that meets a P value outside the domain writes NaN over its output
-    tile (R rows x 16 columns).  ``out`` (if given) receives C.  On the CPU: the plain limb
-    version, which raises ValueError on such a P."""
+    tile (R rows x 16 columns).  ``out`` (if given) receives C.  Under a
+    profiler the launch is the span ``kernel/spmm_group_dot`` with its
+    ``launch_bytes`` (``obs``).  On the CPU: the plain limb version, which
+    raises ValueError on such a P."""
     global LAUNCHES
     _check(gop, p, out)
     if p.device.type == "cpu":
@@ -204,7 +221,8 @@ def spmm_group_dot(gop: GroupOperand, p: torch.Tensor,
     lib = _build.load()
     if gop.n_tiles >= 2**31 or m_cols > lib.spmm_group_dot_max_cols():
         raise ValueError(f"({gop.n_tiles} tiles, {m_cols}) exceeds the kernel's launch grid")
-    with torch.cuda.device(p.device):
+    with (torch.cuda.device(p.device),
+          obs.kernel("spmm_group_dot", launch_bytes, gop, m_cols)):
         err = lib.spmm_group_dot_u8(
             gop.group_ptr.data_ptr(), gop.count.data_ptr(), gop.cols.data_ptr(),
             gop.m8.data_ptr(), p.data_ptr(), out.data_ptr(), gop.n_tiles, gop.n_rows, m_cols,

@@ -30,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from .. import obs
 from ..ops import segments
 from ..ops.segments import INT32_SENTINEL
 from ..semiring import Value, by_name
@@ -108,13 +109,20 @@ def sortmerge_rows_keys_reference(cols: torch.Tensor, limbs: Value,
     return pack(cols_s, INT32_SENTINEL), tuple(pack(x, 0) for x in run)
 
 
+def launch_bytes(cols: torch.Tensor, limbs: Value) -> int:
+    """The least bytes of one ``sortmerge_rows`` launch: the (R, L) slab of
+    columns and limbs read once and written once."""
+    return 2 * (cols.numel() * 4 + sum(x.numel() * x.element_size() for x in limbs))
+
+
 def sortmerge_rows(cols: torch.Tensor, limbs: Value,
                    sr_name: str) -> Tuple[torch.Tensor, Value]:
     """cols (R, L) int32 and the semiring's limbs -> (sorted, merged and
     packed cols, limbs), new tensors.  On CUDA: one launch of the kernel on
     the current stream, without synchronising, for L with
-    ``available(L, nlimbs)``; it raises on any other shape.  On the CPU: the
-    plain version."""
+    ``available(L, nlimbs)``; it raises on any other shape.  Under a
+    profiler the launch is the span ``kernel/sortmerge_rows`` with its
+    ``launch_bytes`` (``obs``).  On the CPU: the plain version."""
     global LAUNCHES
     _check(cols, limbs, sr_name)
     if cols.device.type == "cpu":
@@ -131,7 +139,7 @@ def sortmerge_rows(cols: torch.Tensor, limbs: Value,
         return out_cols, out_limbs
     lib = _build.load()
     lo, hi = limbs[0], limbs[-1]
-    with torch.cuda.device(cols.device):
+    with torch.cuda.device(cols.device), obs.kernel("sortmerge_rows", launch_bytes, cols, limbs):
         err = lib.sortmerge_rows(
             cols.data_ptr(), lo.data_ptr(), hi.data_ptr(), out_cols.data_ptr(),
             out_limbs[0].data_ptr(), out_limbs[-1].data_ptr(), R, L, _MODE[sr_name],

@@ -22,8 +22,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from .. import obs
 from ..csr import HostCSR
 from . import _build
 
@@ -39,6 +41,7 @@ class SparseOperand:
     vals: torch.Tensor     # float32[nnz]
     n_rows: int
     n_cols: int
+    distinct_cols: Optional[int] = None  # columns A references, counted on the host
 
     @property
     def device(self) -> torch.device:
@@ -46,10 +49,33 @@ class SparseOperand:
 
 
 def prepare_sparse_operand(a: HostCSR, device) -> SparseOperand:
-    """Host CSR -> device operand (the counterpart of tile_sparse_operand).
+    """Host CSR -> device operand (the counterpart of tile_sparse_operand),
+    with the number of distinct columns A references, counted on the host.
     Raises ValueError on an integer value >= 2^24."""
     row_ptr, col_idx, vals = a.to_device(device)
-    return SparseOperand(row_ptr, col_idx, vals, a.n_rows, a.n_cols)
+    distinct = int(np.count_nonzero(np.bincount(a.col_idx, minlength=a.n_cols)))
+    return SparseOperand(row_ptr, col_idx, vals, a.n_rows, a.n_cols, distinct)
+
+
+def csr_spmm_bytes(n_rows: int, nnz: int, distinct_cols: int, width_in: int, width_out: int,
+                   value_bytes: int) -> int:
+    """The least bytes of C = A x P with A in CSR: A's row offsets and
+    columns (4 B each), its values and any other array of A the kernel
+    reads (``value_bytes`` in all), each distinct P row that A references
+    read once (``width_in`` f32) and C written once (``width_out`` f32 a
+    row)."""
+    return (4 * (n_rows + 1) + 4 * nnz + value_bytes + 4 * distinct_cols * width_in
+            + 4 * n_rows * width_out)
+
+
+def launch_bytes(op: SparseOperand, m: int) -> Optional[int]:
+    """The least bytes of one ``spmm_dense_acc`` launch with P of ``m``
+    columns (``csr_spmm_bytes``); None where the operand's distinct columns
+    were not counted (``row_slice``, ``SparseOperand`` built by hand)."""
+    if op.distinct_cols is None:
+        return None
+    nnz = op.col_idx.numel()
+    return csr_spmm_bytes(op.n_rows, nnz, op.distinct_cols, m, m, 4 * nnz)
 
 
 def row_slice(op: SparseOperand, start: int, stop: int) -> SparseOperand:
@@ -120,7 +146,9 @@ def spmm_dense_acc(op: SparseOperand, p: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = A x P.  On CUDA: one launch of the hand-written kernel on the
     current stream, without synchronising; ``out`` (if given) receives C, so
-    a chain can ping-pong two buffers.  On the CPU: the plain version."""
+    a chain can ping-pong two buffers.  On the CPU: the plain version.  Under
+    a profiler the launch is the span ``kernel/spmm_dense_acc`` with its
+    ``launch_bytes`` (``obs``)."""
     global LAUNCHES
     _check(op, p, out)
     if p.device.type == "cpu":
@@ -136,7 +164,7 @@ def spmm_dense_acc(op: SparseOperand, p: torch.Tensor,
     lib = _build.load()
     if n_rows >= 2**31 or m > lib.spmm_dense_acc_max_cols():
         raise ValueError(f"({n_rows}, {m}) exceeds the kernel's launch grid")
-    with torch.cuda.device(p.device):
+    with torch.cuda.device(p.device), obs.kernel("spmm_dense_acc", launch_bytes, op, m):
         err = lib.spmm_dense_acc_f32(
             op.row_ptr.data_ptr(), op.col_idx.data_ptr(), op.vals.data_ptr(),
             p.data_ptr(), out.data_ptr(), n_rows, m,

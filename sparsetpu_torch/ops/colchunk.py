@@ -39,6 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import SparseCSR
 from . import segments, slab
 from .segments import INT32_SENTINEL
@@ -80,10 +81,11 @@ def plan_chunks(a: SparseCSR, b: SparseCSR, slot_budget: int = DEFAULT_SLOT_BUDG
     budget is discounted by the worst-case padding of the (A entry, chunk)
     pairs (each wastes fewer than c slots), so a chunk's padded slab
     expansion provably fits."""
-    fcol = _col_flops(a, b).cpu().numpy()
+    with obs.span("sync/col_flops"):
+        fcol = _col_flops(a, b).cpu().numpy()
     cum = np.concatenate([[0], np.cumsum(fcol)])
     total = int(cum[-1])
-    pad_bound = c * max(int(a.nnz), 1)
+    pad_bound = c * max(obs.item(a.nnz, "nnz"), 1)
     eff = max(slot_budget - pad_bound, slot_budget // 4)
     k = max(-(-total // eff), 1)
     targets = (np.arange(1, k) * total) // k
@@ -142,6 +144,7 @@ def _poisoned(n: int, m: int, sr, device) -> SparseCSR:
     return dataclasses.replace(out, nnz=torch.full_like(out.nnz, -1))
 
 
+@obs.traced("product/colchunk")
 def spgemm_colchunk(a: SparseCSR, b: SparseCSR, slot_budget: int = DEFAULT_SLOT_BUDGET,
                     c: int = slab.DEFAULT_C, l: int = slab.DEFAULT_L) -> SparseCSR:
     """C = A x B with the partial products cut into column chunks, each run
@@ -152,7 +155,7 @@ def spgemm_colchunk(a: SparseCSR, b: SparseCSR, slot_budget: int = DEFAULT_SLOT_
         raise ValueError(f"{a.shape} {a.sr_name} x {b.shape} {b.sr_name} do not chain")
     n = a.n_rows
     device = a.device
-    if int(a.nnz) < 0 or int(b.nnz) < 0:
+    if obs.item(a.nnz, "nnz") < 0 or obs.item(b.nnz, "nnz") < 0:
         return _poisoned(n, b.n_cols, a.sr, device)
 
     boundaries, flops_k = plan_chunks(a, b, slot_budget, c)
@@ -162,7 +165,8 @@ def spgemm_colchunk(a: SparseCSR, b: SparseCSR, slot_budget: int = DEFAULT_SLOT_
 
     # ---- reorder B once; the chunk slices share one capacity
     col_s, vals_s, starts, rp2d = _reorder_b(b, torch.from_numpy(boundaries).to(device), k)
-    starts_h = starts.cpu().numpy()
+    with obs.span("sync/chunk_starts"):
+        starts_h = starts.cpu().numpy()
     cap_bc = pow2(max(int((starts_h[1:] - starts_h[:-1]).max()), 1))
     # pad the stream by one slice, so that a late chunk's slice never runs
     # short (JAX's dynamic_slice would clamp its start instead)
@@ -182,7 +186,7 @@ def spgemm_colchunk(a: SparseCSR, b: SparseCSR, slot_budget: int = DEFAULT_SLOT_
                         sr_name=b.sr_name)
         out_cap = pow2(int(min(flops_k[ki], n * w_pad)))
         c_k = slab.slab_numeric(a, b_k, slab.slab_config(a, b_k, out_cap, l, c))
-        nnz_k = int(c_k.nnz)
+        nnz_k = obs.item(c_k.nnz, "nnz")
         if nnz_k < 0:
             return _poisoned(n, b.n_cols, a.sr, device)
         cap2 = pow2(max(nnz_k, 1))
@@ -204,7 +208,7 @@ def spgemm_colchunk(a: SparseCSR, b: SparseCSR, slot_budget: int = DEFAULT_SLOT_
     rn = torch.stack([r.row_nnz().long() for _, r in live])     # (#live, n)
     base_excl = torch.cumsum(rn, dim=0) - rn                      # exclusive over chunks
     row_ptr_final = torch.cat([rn.new_zeros(1), torch.cumsum(rn.sum(dim=0), dim=0)])
-    total_nnz = sum(int(r.nnz) for _, r in live)
+    total_nnz = sum(obs.item(r.nnz, "nnz") for _, r in live)
     final_cap = pow2(max(total_nnz, 1))
     dump = max(r.capacity for _, r in live)
     out_col = torch.full((final_cap + dump,), INT32_SENTINEL, dtype=torch.int32, device=device)

@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import F32_EXACT_LIMIT, SparseCSR
 from ..kernels import spmm as kspmm
 from ..semiring import by_name
@@ -82,7 +83,7 @@ def plan_dense_acc(a: SparseCSR) -> kspmm.SparseOperand:
     included), which the f32 carrier cannot hold exactly."""
     if a.sr_name != "f32" and max_value(a) >= F32_EXACT_LIMIT:
         raise ValueError("the dense accumulator requires values < 2^24")
-    nnz = int(a.check().nnz)
+    nnz = obs.item(a.check().nnz, "nnz")
     return kspmm.SparseOperand(a.row_ptr.int().contiguous(),
                                a.col_idx[:nnz].int().contiguous(),
                                _values_to_f32(tuple(l[:nnz] for l in a.values),
@@ -183,6 +184,7 @@ def dense_acc_numeric(op: kspmm.SparseOperand, b: SparseCSR, cap: int) -> Sparse
     return _poison(_dense_to_csr_lanesort(c, b.sr_name, cap), _exact_f32(c, b.sr_name))
 
 
+@obs.traced("product/denseacc")
 def spgemm_dense_acc(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None) -> SparseCSR:
     """C = A x B through the dense accumulator (u64/u32 exact below 2^24,
     f32 plain float).  ``out_cap`` defaults to the next power of two of
@@ -242,9 +244,10 @@ def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
         cts, ex = _panel_counts(panel_fn, lo, w)
         counts_dev.append(cts)
         exact_dev.append(ex)
-    counts_all = (torch.stack(counts_dev).cpu().numpy() if counts_dev
-                  else np.zeros((0, n), np.int64))
-    all_exact = bool(torch.stack(exact_dev).all()) if exact_dev else True
+    with obs.span("sync/panel_counts"):
+        counts_all = (torch.stack(counts_dev).cpu().numpy() if counts_dev
+                      else np.zeros((0, n), np.int64))
+    all_exact = obs.item(torch.stack(exact_dev).all(), "panel_exact") if exact_dev else True
     nnzp = counts_all.sum(axis=1)
     total = int(nnzp.sum())
     if total >= 2**31:
@@ -266,6 +269,7 @@ def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
                      n_rows=n, n_cols=m, sr_name=sr_name)
 
 
+@obs.traced("product/denseacc_tiled")
 def spgemm_dense_acc_tiled(a: SparseCSR, b: SparseCSR, panel_cols: int = 8192) -> SparseCSR:
     """C = A x B through column-panel sweeps of the dense accumulator: only
     one (k, panel_cols) B panel and one (n, panel_cols) C panel live at a
@@ -344,6 +348,7 @@ def densedense_fits(n: int, k: int, m: int, budget_bytes: float = 6e9) -> bool:
     return 4.0 * (n * k + k * m + 3 * n * m) <= budget_bytes
 
 
+@obs.traced("product/densedense")
 def spgemm_dense_dense(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None,
                        wide: bool = False) -> SparseCSR:
     """C = A x B through the fully dense route (``densedense_numeric``);
@@ -378,6 +383,7 @@ def densedense_tiled_panel_cols(n: int, k: int, budget_bytes: float = 6e9) -> in
     return min(w, 8192)
 
 
+@obs.traced("product/densedense_tiled")
 def spgemm_dense_dense_tiled(a: SparseCSR, b: SparseCSR, panel_cols: int = 8192) -> SparseCSR:
     """C = A x B: A densified once, B/C column panels swept through fp32
     products, with the two sweeps of ``spgemm_dense_acc_tiled``.  Exactness

@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import SparseCSR
 from . import segments
 from .segments import INT32_SENTINEL
@@ -166,7 +167,8 @@ def blocked_config(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None,
                          "use a slab route")
     narrow = narrow_u64_ok(a, b)
     fr_dev = row_flops(a, b)
-    fr = fr_dev.cpu().numpy()
+    with obs.span("sync/row_flops"):
+        fr = fr_dev.cpu().numpy()
     total = int(fr.sum())
     if total >= 1 << 31:
         raise ValueError(f"expansion of {total} products cannot be materialized")
@@ -200,6 +202,7 @@ def blocked_numeric(a: SparseCSR, b: SparseCSR, plan: BlockedPlan) -> SparseCSR:
     return merge_disjoint_rows(outs[0], outs[1], plan.out_cap)
 
 
+@obs.traced("product/escb")
 def spgemm_blocked(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None,
                    L: int = DEFAULT_L) -> SparseCSR:
     """C = A x B by row-packed blocked ESC: one n-sized fetch and the host

@@ -43,6 +43,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import SparseCSR
 from ..kernels import sortmerge
 from . import segments
@@ -158,7 +159,8 @@ def rowcat_config(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None):
     the overflow rows' expansion capacity (0 when there are none) and cap_g
     the shared stream's.  Raises ValueError past 2^31 products."""
     fr, cat, perm, stats = plan(a, b)
-    stats_h = stats.cpu().numpy().astype(np.int64)
+    with obs.span("sync/row_stats"):
+        stats_h = stats.cpu().numpy().astype(np.int64)
     rows_per, flops_per = stats_h[:, 0], stats_h[:, 1]
     of_cap = 0
     if rows_per[-1] > 0:
@@ -221,6 +223,7 @@ def rowcat_numeric(a: SparseCSR, b: SparseCSR, fr, cat, perm, cats, of_cap: int,
     return dataclasses.replace(merged, nnz=torch.where(poisoned, -1, merged.nnz))
 
 
+@obs.traced("product/rowcat")
 def spgemm_rowcat(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None,
                   use_kernel: bool = True) -> SparseCSR:
     """C = A x B by row categorization: one host fetch of the category table

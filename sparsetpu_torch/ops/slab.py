@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..csr import SparseCSR
 from ..kernels import coalesce
 from . import segments
@@ -257,9 +258,10 @@ def slab_config(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None,
         raise ValueError(f"{a.shape} {a.sr_name} x {b.shape} {b.sr_name} do not chain")
     narrow = narrow_u64_ok(a, b)
     rc_dev, nch_total, sg_dev = plan_device(a, b, C)
-    rc = rc_dev.cpu().numpy()
-    ncc = max(int(nch_total), 1)
-    sg = pow2(max(int(sg_dev), 1))
+    with obs.span("sync/slab_plan"):
+        rc = rc_dev.cpu().numpy()
+    ncc = max(obs.item(nch_total, "slab_plan"), 1)
+    sg = pow2(max(obs.item(sg_dev, "slab_plan"), 1))
     total_chunks = int(rc.sum())
     if total_chunks * C >= 1 << 31:
         raise ValueError(f"expansion of {total_chunks * C} slots cannot be materialized")
@@ -304,12 +306,13 @@ def survivor_streams(a: SparseCSR, b: SparseCSR, plan: SlabPlan, pack: int = 0):
     return offs, streams
 
 
+@obs.traced("product/slab")
 def spgemm_slab(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None,
                 L: int = DEFAULT_L, C: int = DEFAULT_C) -> SparseCSR:
     """C = A x B by slab ESC: one n-sized fetch and the host packing, then
     one device pass per lane width (two when wide rows need a second).  A
     poisoned operand gives a poisoned result."""
-    if int(a.nnz) < 0 or int(b.nnz) < 0:
+    if obs.item(a.nnz, "nnz") < 0 or obs.item(b.nnz, "nnz") < 0:
         out = SparseCSR.empty(a.n_rows, b.n_cols, max(out_cap or 1, 1), a.sr, a.device)
         return dataclasses.replace(out, nnz=torch.full_like(out.nnz, -1))
     return slab_numeric(a, b, slab_config(a, b, out_cap, L, C))

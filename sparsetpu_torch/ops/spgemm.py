@@ -30,6 +30,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..csr import SparseCSR
 from . import segments
 from .segments import INT32_SENTINEL
@@ -81,7 +82,8 @@ def symbolic_flops(a: SparseCSR, b: SparseCSR) -> torch.Tensor:
 
 def symbolic_flops_exact(a: SparseCSR, b: SparseCSR) -> int:
     """The flop count on the host (one synchronisation)."""
-    return int(symbolic_flops(a, b))
+    with obs.span("esc/symbolic"):
+        return obs.item(symbolic_flops(a, b), "flops")
 
 
 def max_value(a: SparseCSR) -> int:
@@ -91,7 +93,7 @@ def max_value(a: SparseCSR) -> int:
     valid = torch.arange(a.capacity, device=a.device) < a.nnz
     out = 0
     for k, limb in enumerate(a.values):
-        out |= int(torch.where(valid, limb, 0).max()) << (32 * k)
+        out |= obs.item(torch.where(valid, limb, 0).max(), "max_value") << (32 * k)
     return out
 
 
@@ -104,6 +106,7 @@ def narrow_u64_ok(a: SparseCSR, b: SparseCSR) -> bool:
     return ma < (1 << 32) and mb < (1 << 32) and ma * mb < (1 << 32)
 
 
+@obs.traced("esc/expand")
 def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = False,
                     row_mask: Optional[torch.Tensor] = None):
     """The partial-product streams (i, j, v, valid, total) of A x B, each of
@@ -152,6 +155,7 @@ def expand_products(a: SparseCSR, b: SparseCSR, expand_cap: int, narrow: bool = 
     return i, j, v, valid, total
 
 
+@obs.traced("product/esc")
 def spgemm(a: SparseCSR, b: SparseCSR, expand_cap: int,
            out_cap: Optional[int] = None, narrow: bool = False) -> SparseCSR:
     """C = A x B on the semiring.  ``expand_cap`` must be >= flops(A, B)
@@ -232,6 +236,7 @@ def auto_route(a: SparseCSR, b: SparseCSR, flops: int) -> Tuple[List[bool], str]
 
 KERNELS = ("auto", "esc", "rowcat", "denseacc", "denseacc_tiled", "densedense", "colchunk",
            "slab", "escb")
+AUTO_SPANS = {k: f"product/auto/{k}" for k in KERNELS[1:]}  # spgemm_auto's span by route
 
 
 def spgemm_auto(a: SparseCSR, b: SparseCSR, round_to_pow2: bool = True,
@@ -245,24 +250,34 @@ def spgemm_auto(a: SparseCSR, b: SparseCSR, round_to_pow2: bool = True,
     else to rowcat.  ``kernel`` forces a route (``KERNELS``).  A product of
     2^31 or more partial products raises ValueError on the routes that
     materialise the expansion (esc, rowcat).  Returns the checked product
-    (``check()`` raises on a poisoned one)."""
-    from . import colchunk, denseacc, escb, rowcat, slab
-
+    (``check()`` raises on a poisoned one).  Under a profiler its span is
+    ``product/auto/<route>``, the route tried first (``obs``)."""
     if a.n_cols != b.n_rows or a.sr_name != b.sr_name:
         raise ValueError(f"{a.shape} {a.sr_name} x {b.shape} {b.sr_name} do not chain")
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
     flops = symbolic_flops_exact(a, b)
-    out_cap = pow2(min(flops, a.n_rows * b.n_cols))
+    tiers: List[bool] = []
     if kernel == "auto":
         tiers, kernel = auto_route(a, b, flops)
-        for wide in tiers:
-            try:
-                return denseacc.spgemm_dense_dense(a, b, out_cap=out_cap, wide=wide).check()
-            except ValueError:
-                pass  # the on-device range check poisoned: the next tier
-            except torch.cuda.OutOfMemoryError:
-                torch.cuda.empty_cache()  # JAX: RESOURCE_EXHAUSTED -> the sort paths
+    with obs.span(AUTO_SPANS["densedense" if tiers else kernel]):
+        return _routed(a, b, flops, tiers, kernel, round_to_pow2)
+
+
+def _routed(a: SparseCSR, b: SparseCSR, flops: int, tiers: List[bool], kernel: str,
+            round_to_pow2: bool) -> SparseCSR:
+    """``spgemm_auto``'s product on its route: the dense-dense ``tiers``
+    first, then ``kernel`` and its fallbacks."""
+    from . import colchunk, denseacc, escb, rowcat, slab
+
+    out_cap = pow2(min(flops, a.n_rows * b.n_cols))
+    for wide in tiers:
+        try:
+            return denseacc.spgemm_dense_dense(a, b, out_cap=out_cap, wide=wide).check()
+        except ValueError:
+            pass  # the on-device range check poisoned: the next tier
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()  # JAX: RESOURCE_EXHAUSTED -> the sort paths
     if flops >= 1 << 31 and kernel in ("esc", "rowcat"):
         raise ValueError(f"spgemm expansion of {flops} products cannot be materialized "
                          "(int32 indexing); split the product or use a dense path")
