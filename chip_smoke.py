@@ -43,7 +43,11 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    67 TFLOP/s, SDD's 3xTF32 products at 495 TFLOP/s with its fp32 bound
    beside) and, where PyTorch computes
    the same function, that call's time (for coalesce, one masked_select a
-   stream);
+   stream); last the ESC kernels (``kernels/esc.py``) at the chain's A^6 x
+   A, every field of the product (row offsets, columns, both limbs, nnz)
+   equal to the tensor ops' (``ops.spgemm.spgemm_reference``), six launches
+   from a count set to 0 just before, with the kernels' and the key sort's
+   device ms and the bound (A^6 and A read once, C written once);
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
@@ -73,7 +77,9 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    escb, dense and band): every step's (nnz, max) against the published
    table, the esc and escb chains' whole CSR at every step against the
    oracle's products (computed once and shared), the dense and band chains'
-   final values on 128 rows.  The sweep runs JAX's eight algorithms (esc,
+   final values on 128 rows; the esc chain exactly six ESC-kernel launches
+   a product (one checked call and three timed calls a step), the other
+   three none.  The sweep runs JAX's eight algorithms (esc,
    escb, rowcat, rowcat_pallas, denseacc, densedense, densedense_tiled,
    bcoo), every product equal to the oracle's whole CSR, the only DNF rows
    JAX's own rule's (densedense at n = 27,000), at least one dense-acc
@@ -94,7 +100,8 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    launch on nell (A^4); each kernel a step launched held exactly against
    its plain version on the inputs of its first call in the step's timed
    product (nell A^4: A and a 5,120-column panel of A^3; every slab and
-   colchunk step's coalesce streams); cora's band hybrid equal to spgemm_auto's CSR value for value;
+   colchunk step's coalesce streams; an "esc" route's operands on the ESC
+   kernels against the tensor ops); cora's band hybrid equal to spgemm_auto's CSR value for value;
    on cora and nell reachability and the diameter on the int8 engine,
    reachability's nnz equal to sum |C|^2 over the components of two or more
    nodes (cora: 7,333,264 at k = 11) and k equal to the diameter + 1, the
@@ -116,8 +123,10 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    and once timed, that call's kernels' first-call inputs held exactly
    against their plain versions (every kernel it launched; those launches
    not counted); at least one coalesce launch.
-   Then row-partitioned execution (``sparsetpu_torch/dist``, no kernel of
-   the six on its path: each rank reports 0 launches) on the same 30^3
+   Then row-partitioned execution (``sparsetpu_torch/dist``: of the
+   kernels only ESC's on its path, each rank's count exactly six a product
+   of its sharded chain, the others 0; each step's first product in a rank
+   held exactly against the tensor ops on its own inputs) on the same 30^3
    torus: the sharded ESC chain A^2..A^7 with the product kept sharded,
    first on one rank over NCCL (every step's (nnz, max) against the
    published table, unshard(A^4) and unshard(A^7) equal to the oracle's
@@ -146,7 +155,9 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    call, for dense-acc, sort-merge and coalesce the real-graph path's
    launches, first-call device time and max |error| on its inputs, and for
    every kernel the einsum engine phase's launches, the device ms of its
-   profiled calls and the max |error| on its inputs), the dist phase's
+   profiled calls and the max |error| on its inputs; the ESC kernels' row
+   with the same for the esc chain, the real-graph, engine and dist
+   phases), the dist phase's
    line (step times, transports, ring capacities, imbalance, the band, the
    scaling rows, the dry run), the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -290,7 +301,8 @@ def csr_spmm_bytes(row_ptr, cols, n_rows: int, width_in: int, width_out: int,
 def profiled(fn, kernels):
     """Run fn() under torch.profiler and return (its result, {kernel: device
     ms}): each of ``kernels``' summed self device time, from
-    ``key_averages()`` (its CUDA function is ``<name>_kernel``).  CUDA
+    ``key_averages()`` (its CUDA function is ``<name>_kernel``, or for a
+    wrapper of several kernels each of ``DEVICE_KERNELS[name]``'s).  CUDA
     activity only: recording the host's ops too would slow the host-bound
     paths (the slab steps, ESC, the small sweep rows) further."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -302,9 +314,69 @@ def profiled(fn, kernels):
     ms = dict.fromkeys(kernels, 0.0)
     for e in prof.key_averages():
         for name in kernels:
-            if f"{name}_kernel" in e.key:
+            if any(f"{k}_kernel" in e.key for k in DEVICE_KERNELS.get(name, (name,))):
                 ms[name] += device_us(e) / 1e3
     return out, ms
+
+
+ESC_KERNELS = ("esc_counts", "esc_expand", "esc_merge_tiles", "esc_merge_carry",
+               "esc_merge_emit", "esc_merge_rows")  # csrc/esc_products.cu's kernels
+ESC_PER_PRODUCT = len(ESC_KERNELS)  # launches of one spgemm_esc
+# the wrapper of several kernels: spgemm_esc (kernels/esc.py) launches six
+DEVICE_KERNELS = {"spgemm_esc": ESC_KERNELS}
+
+
+def esc_kernel_row(dev, h30) -> dict:
+    """The ESC kernels (``kernels/esc.py``) at the chain's A^6 x A on the
+    30^3 torus: the product on the kernels equal to the tensor-op version
+    (``ops.spgemm.spgemm_reference``) in every field, six launches; the
+    kernel path's and the plain version's device ms, the bound (A^6 and A
+    read once, C written once at its capacity), the kernels' and the key
+    sort's device ms in one profiled call."""
+    from sparsetpu_torch.csr import SparseCSR
+    from sparsetpu_torch.kernels import esc
+    from sparsetpu_torch.ops import spgemm as ops_spgemm
+    from sparsetpu_torch.semiring import U64
+
+    a = SparseCSR.from_coo_host(h30.rows(), h30.col_idx, h30.vals, h30.n_rows, sr=U64,
+                                device=dev)
+    c = a
+    for _ in range(5):  # A^2 .. A^6 on the kernels
+        c = ops_spgemm.spgemm(c, a, ops_spgemm.pow2(ops_spgemm.symbolic_flops_exact(c, a)))
+        c = c.check()
+    flops = ops_spgemm.symbolic_flops_exact(c, a)
+    cap = ops_spgemm.pow2(flops)
+    esc.LAUNCHES = 0
+    got = ops_spgemm.spgemm(c, a, cap)
+    check(esc.LAUNCHES == ESC_PER_PRODUCT, f"ESC made {esc.LAUNCHES} launches, not 6")
+    want = ops_spgemm.spgemm_reference(c, a, cap)
+    for name, g, w in zip(("row_ptr", "col_idx", "lo", "hi", "nnz"),
+                          (got.row_ptr, got.col_idx, *got.values, got.nnz),
+                          (want.row_ptr, want.col_idx, *want.values, want.nnz)):
+        compare(f"ESC kernels A^6 x A {name}", g, w)
+    nnz6, nnz7 = int(c.nnz), int(got.nnz)
+    check(nnz7 == EXPECTED[-1][1], f"ESC A^7 nnz {nnz7} != {EXPECTED[-1][1]}")
+    del want
+    b_ms, b_by = bound(esc.product_bytes(c.n_rows, nnz6, a.n_rows, int(a.nnz), c.n_rows, cap, 2))
+    _, dev_ms = profiled(lambda: ops_spgemm.spgemm(c, a, cap), ESC_KERNELS)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ops_spgemm.spgemm(c, a, cap)
+        torch.cuda.synchronize()
+    from sparsetpu_torch.bench.spgemm_profile import device_us
+    sort_ms = sum(device_us(e) for e in prof.key_averages()
+                  if "radixsort" in e.key.lower()) / 1e3
+    row = dict(ms=time_ms(lambda: ops_spgemm.spgemm(c, a, cap), 10),
+               plain_ms=time_ms(lambda: ops_spgemm.spgemm_reference(c, a, cap), 3),
+               bound_ms=b_ms, bound_by=b_by, kernels_device_ms=dev_ms,
+               sort_device_ms=sort_ms, flops=flops, expand_cap=cap, nnz=nnz7,
+               timed_on=f"A^6 x A of the 30^3 torus: nnz {nnz6} x {int(a.nnz)}, "
+                        f"{flops} products, expand_cap = out_cap = {cap}")
+    print(f"[3] ESC kernels on {row['timed_on']}: == plain in every field (exact), 6 "
+          f"launches; kernel path {row['ms']:.4f} ms (its kernels "
+          f"{sum(dev_ms.values()):.4f} ms: {', '.join(f'{k} {v:.4f}' for k, v in dev_ms.items())};"
+          f" the key sort {sort_ms:.4f} ms), plain {row['plain_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return row
 
 
 def sdd_library_mask(qi, ki, m: int, n: int):
@@ -321,14 +393,19 @@ def sdd_library_mask(qi, ki, m: int, n: int):
 
 
 # the kernels the real-graph path can launch (sort-merge only where rowcat's
-# fallback fires)
-REAL_GRAPH_KERNELS = ("spmm_dense_acc", "coalesce_blocks", "sortmerge_rows")
+# fallback fires, ESC's on the router's "esc" route)
+REAL_GRAPH_KERNELS = ("spmm_dense_acc", "coalesce_blocks", "sortmerge_rows", "spgemm_esc")
 
 
 def flat_tensors(out):
-    """The tensors of a kernel wrapper's result (a tensor or nested tuples)."""
+    """The tensors of a kernel wrapper's result (a tensor, a SparseCSR or
+    nested tuples)."""
+    from sparsetpu_torch.csr import SparseCSR
+
     if isinstance(out, torch.Tensor):
         return [out]
+    if isinstance(out, SparseCSR):
+        return [out.row_ptr, out.col_idx, *out.values, out.nnz]
     return [t for part in out for t in flat_tensors(part)]
 
 
@@ -375,7 +452,10 @@ def plain_version(name, mod, args, kwargs):
     materialises an (nnz, m) gather (82 GB for nell's A^2 against a 5,120
     column panel), so it runs in column blocks of at most 4 GB: each column
     of C reads the same column of P alone, so the blocks join into the
-    same C."""
+    same C.  ESC's is the tensor ops of ``ops.spgemm``."""
+    if name == "spgemm_esc":
+        from sparsetpu_torch.ops.spgemm import spgemm_reference
+        return spgemm_reference(*args, **kwargs)
     ref = getattr(mod, f"{name}_reference")
     if name == "spmm_dense_acc":
         op, p = args[0], args[1]
@@ -404,7 +484,7 @@ def hold_kernels(where, captured, counters, errs):
         errs[name] = max(errs.get(name, 0.0), err)
         compared.add(name)
         # dense-acc's P (a panel of the right operand), coalesce's first
-        # stream, sort-merge's columns
+        # stream, sort-merge's columns, ESC's right operand's row offsets
         print(f"[4] {where} {name} on its first call's inputs in the {route} product "
               f"({tuple(flat_tensors(args[1])[0].shape)}) == the plain version (exact)",
               flush=True)
@@ -574,7 +654,7 @@ def real_graph_phase(dev, counters, reset_counts):
 
 # the kernels the einsum engine's path can launch: coalesce (colchunk and
 # slab products), dense-acc (the panel sweep), sort-merge (the rowcat
-# fallback)
+# fallback), ESC's (the "esc" route)
 ENGINE_KERNELS = REAL_GRAPH_KERNELS
 ENGINE_N, ENGINE_NNZ_PER_ROW = 27000, 8  # engine_bench's cells (BASELINE configs 3-4)
 NELL_A4_NNZ = 321_409_501  # reports/real_graphs_r5.csv line 11
@@ -844,8 +924,9 @@ def dist_phase(dev, counters, reset_counts, h30, oracle30, esc_chain_ms, att_row
     scaling_args = (arrays, SCALING_STEPS, SCALING_ITERS)
     check(multihost.world_backend(1, dev) == "nccl", "one rank on the card is not over NCCL")
     t0 = time.perf_counter()
+    one_iters, four_iters = 3, 2
     (one, one_sp), = multihost.run_local(programs.run_all, 1, [
-        ("smoke", (arrays, STEPS, 3, (4, STEPS), (), None)),
+        ("smoke", (arrays, STEPS, one_iters, (4, STEPS), (), None)),
         ("scaling_point", scaling_args)])
     t_one = time.perf_counter() - t0
     check(one["transport"] == "nccl", f"one rank ran over {one['transport']}")
@@ -870,7 +951,8 @@ def dist_phase(dev, counters, reset_counts, h30, oracle30, esc_chain_ms, att_row
           f"{DIST_RANKS} ranks on {torch.cuda.device_count()} card(s) are not over gloo")
     t0 = time.perf_counter()
     four = multihost.run_local(programs.run_all, DIST_RANKS, [
-        ("smoke", (arrays, STEPS, 2, (STEPS,), RING_PAIRS, (half_width, BAND_BLOCKS[n]))),
+        ("smoke", (arrays, STEPS, four_iters, (STEPS,), RING_PAIRS,
+                   (half_width, BAND_BLOCKS[n]))),
         ("scaling_point", scaling_args), ("dryrun", ())])
     t_four = time.perf_counter() - t0
     r0 = four[0][0]
@@ -889,9 +971,20 @@ def dist_phase(dev, counters, reset_counts, h30, oracle30, esc_chain_ms, att_row
     check(band["bit_equal"] and band["nnz"] == BAND_A2_NNZ and band["nb"] == 216
           and band["nb_local"] == 216 // DIST_RANKS,
           f"sharded band product {band} is not the unsharded one with nnz {BAND_A2_NNZ}")
-    launches = [dict(r["launches"]) for r in [one] + [r[0] for r in four]]
-    check(all(not any(l.values()) for l in launches),
-          f"a kernel wrapper launched on the dist path: {launches}")
+    # each rank: the sharded chain's products on ESC's kernels (one a step
+    # and pass), no other kernel; each step's first product held against
+    # the tensor ops on its own inputs
+    ranks = [one] + [r[0] for r in four]
+    launches = [dict(r["launches"]) for r in ranks]
+    want_esc = [ESC_PER_PRODUCT * (STEPS - 1) * it
+                for it in [one_iters] + [four_iters] * DIST_RANKS]
+    check([l.pop("spgemm_esc") for l in launches] == want_esc
+          and all(not any(l.values()) for l in launches),
+          f"dist path launches {[dict(r['launches']) for r in ranks]}: not {want_esc} of "
+          f"ESC's kernels alone")
+    check([r["esc_held"] for r in ranks] == [STEPS - 1] * len(ranks),
+          f"ESC products held against the tensor ops a rank: {[r['esc_held'] for r in ranks]}")
+    out["esc"] = {"launches": want_esc, "held": STEPS - 1}
     for r in r0["steps"]:
         print(f"[4] dist {DIST_RANKS} ranks A^{r['step']} step: {r['ms']:.4f} ms; "
               f"work_imbalance {r['imbalance']:.4f}", flush=True)
@@ -903,8 +996,9 @@ def dist_phase(dev, counters, reset_counts, h30, oracle30, esc_chain_ms, att_row
           f"unshard(A^{STEPS}) == the 1-rank result bit for bit; band A^2 (block "
           f"{band['block']}, half-width {band['half_width']}, {band['nb']} block rows, "
           f"{band['nb_local']} a rank) == the unsharded band_matmul bit for bit, nnz "
-          f"{band['nnz']}, {band['ms']:.4f} ms; world {t_four:.1f} s; no kernel wrapper "
-          f"launched in any rank", flush=True)
+          f"{band['nnz']}, {band['ms']:.4f} ms; world {t_four:.1f} s; ESC's kernels alone "
+          f"launched, {want_esc} a rank, each step's first product in every rank == the "
+          f"tensor ops (exact)", flush=True)
     out["four_ranks"] = {"transport": "gloo", "world_s": t_four, "steps": r0["steps"],
                          "chain_ms": sum(r["ms"] for r in r0["steps"]),
                          "ring": [{k: v for k, v in ring.items() if k != "whole"}
@@ -978,7 +1072,7 @@ def main() -> None:
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
     from sparsetpu_torch.kernels import (_build, bandmm, bandplanes, blocksparse, coalesce,
-                                         groupdot, sortmerge, spmm)
+                                         esc, groupdot, sortmerge, spmm)
     from sparsetpu_torch.ops import colchunk, denseacc, slab as slab_ops
     from sparsetpu_torch.ops.spgemm import (auto_route, dense_acc_panel_cols, spgemm_auto,
                                             symbolic_flops_exact)
@@ -992,7 +1086,7 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
     counters = {"spmm_dense_acc": spmm, "spmm_band": bandplanes,
                 "spmm_group_dot": groupdot, "sdd_block_scores": blocksparse,
-                "sortmerge_rows": sortmerge, "coalesce_blocks": coalesce}
+                "sortmerge_rows": sortmerge, "coalesce_blocks": coalesce, "spgemm_esc": esc}
 
     def reset_counts():
         for mod in counters.values():
@@ -1573,6 +1667,8 @@ def main() -> None:
     (_, main_t), = co_real.items()
     timing["coalesce_blocks"] = dict(main_t, **{f"er_{key}": v for key, v in er_t.items()})
     torch.cuda.empty_cache()
+    esc_row = esc_kernel_row(dev, h30)
+    torch.cuda.empty_cache()
 
     since_start("phase 4 (the chains)")
     # ---- phase 4: the port's paths at full scale
@@ -1862,16 +1958,17 @@ def main() -> None:
     other_chains = {}
     half_width = bandmm.cyclic_bandwidth(h30)
     check(half_width == 1799, f"30^3 cyclic bandwidth {half_width}, not 1,799")
+    chain_iters = 3
     for algo, run in (
-            ("esc", lambda: run_chain(h30, dev, max_step=STEPS, iters=3, native_stats=stats,
-                                      verbose=False, oracle=oracle30)),
-            ("escb", lambda: run_chain_escb(h30, dev, max_step=STEPS, iters=3,
+            ("esc", lambda: run_chain(h30, dev, max_step=STEPS, iters=chain_iters,
+                                      native_stats=stats, verbose=False, oracle=oracle30)),
+            ("escb", lambda: run_chain_escb(h30, dev, max_step=STEPS, iters=chain_iters,
                                             native_stats=stats, verbose=False,
                                             oracle=oracle30)),
-            ("dense", lambda: run_chain_dense(h30, dev, max_step=STEPS, iters=3,
+            ("dense", lambda: run_chain_dense(h30, dev, max_step=STEPS, iters=chain_iters,
                                               native_stats=stats, verbose=False)),
             ("band", lambda: run_chain_band(h30, dev, half_width, block=BAND_BLOCKS[n30],
-                                            max_step=STEPS, iters=3, native_stats=stats,
+                                            max_step=STEPS, iters=chain_iters, native_stats=stats,
                                             verbose=False))):
         reset_counts()
         t0 = time.perf_counter()
@@ -1880,6 +1977,13 @@ def main() -> None:
         counts = {name: mod.LAUNCHES for name, mod in counters.items()}
         got = [(r.step, r.nnz, int(r.max_value)) for r in steps]
         check(got == EXPECTED, f"{algo} chain (step, nnz, max) {got} != {EXPECTED}")
+        # a step is one checked call and chain_iters timed calls
+        want_esc = ESC_PER_PRODUCT * (STEPS - 1) * (1 + chain_iters) if algo == "esc" else 0
+        check(counts["spgemm_esc"] == want_esc and not any(
+                  n for k, n in counts.items() if k != "spgemm_esc"),
+              f"--algo {algo} launches {counts}, not {want_esc} of ESC's kernels alone")
+        if algo == "esc":
+            esc_row["esc_chain_launches"] = counts["spgemm_esc"]
         csr_chain = algo in ("esc", "escb")
         if not csr_chain:
             verify_final_values(out if algo == "dense" else bandmm.band_to_dense(out), final,
@@ -1978,6 +2082,16 @@ def main() -> None:
     print(json.dumps({"einsum_engine": engine_out}), flush=True)
     print(json.dumps({"dist": dist_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the ESC kernels on the main path: the esc chain's launches (above), the
+    # real-graph, engine and dist phases' launches and their holds against
+    # the tensor ops on the phases' own inputs (None: not launched there)
+    esc_row.update(real_graph_launches=rg_launches["spgemm_esc"],
+                   real_graph_max_abs_err=rg_err.get("spgemm_esc"),
+                   engine_launches=eng_launches["spgemm_esc"],
+                   engine_max_abs_err=eng_err.get("spgemm_esc"),
+                   dist_launches=dist_out["esc"]["launches"],
+                   dist_steps_held=dist_out["esc"]["held"])
+    print(json.dumps({"esc_products": esc_row}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -17,6 +17,7 @@ rank's device; ``csr_arrays`` and ``coo_arrays`` make them from a
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -296,6 +297,51 @@ def dryrun(device) -> Dict[str, int]:
 
 # -- chip_smoke.py's program -------------------------------------------------
 
+@contextlib.contextmanager
+def _first_esc_call(kept: list):
+    """Within the block, the arguments of the first ``kernels/esc``
+    product (``spgemm_esc``, which ``ops.spgemm.spgemm`` calls for CUDA
+    u32 and u64 operands) are appended to ``kept``; the product runs as
+    before."""
+    from ..kernels import esc
+
+    launch = esc.spgemm_esc
+
+    def keeping(*args):
+        if not kept:
+            kept.append(args)
+        return launch(*args)
+
+    esc.spgemm_esc = keeping
+    try:
+        yield
+    finally:
+        esc.spgemm_esc = launch
+
+
+def _hold_esc(kept: list, where: str) -> int:
+    """The ESC product kept by ``_first_esc_call`` run again on the kernels
+    and on the tensor ops (``ops.spgemm.spgemm_reference``); raises unless
+    every field (row offsets, columns, limbs, nnz) is equal.  That launch is
+    not counted.  Returns the products held (0 or 1)."""
+    from ..kernels import esc
+    from ..ops.spgemm import spgemm_reference
+
+    if not kept:
+        return 0
+    args = kept.pop()
+    n_path = esc.LAUNCHES
+    got = esc.spgemm_esc(*args)
+    esc.LAUNCHES = n_path
+    want = spgemm_reference(*args)
+    for name, g, w in zip(("row_ptr", "col_idx", "limbs", "nnz"),
+                          (got.row_ptr, got.col_idx, torch.stack(got.values), got.nnz),
+                          (want.row_ptr, want.col_idx, torch.stack(want.values), want.nnz)):
+        if not torch.equal(g, w):
+            raise ValueError(f"{where}: the ESC kernels' {name} != the tensor ops'")
+    return 1
+
+
 def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
           ring_pairs: Sequence[Tuple[int, int]], band: Optional[Tuple[int, int]]) -> dict:
     """The smoke's sharded paths on the full operand A:
@@ -309,17 +355,20 @@ def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
       operands the chain's sharded products: its capacities, ms and whole;
     - with ``band = (half_width, block)``, the sharded band product of A's
       cyclic band with itself against the unsharded ``band_matmul``;
-    - the launches of the port's kernel wrappers in this rank (the path
-      runs none of them).
+    - the launches of the port's kernel wrappers in this rank: on a card
+      the chain's products take the ESC kernels (``kernels/esc``), six
+      launches a product, and nothing else; each step's first such product
+      in the first pass is held against the tensor ops (``esc_held``, the
+      steps held, ``_hold_esc``).
 
     Whole CSRs come back from rank 0 only."""
-    from ..kernels import bandplanes, blocksparse, coalesce, groupdot, sortmerge, spmm
+    from ..kernels import bandplanes, blocksparse, coalesce, esc, groupdot, sortmerge, spmm
 
     mesh = dshard.default_mesh(dist.get_world_size())
     rank0 = dshard.mesh_rank(mesh) == 0
     a_dev, s = _shard_of(a, device, mesh)
     out = {"transport": dshard.transport(mesh), "ranks": mesh.size(), "steps": [],
-           "wholes": {}}
+           "wholes": {}, "esc_held": 0}
     powers = {1: s}
     best = [float("inf")] * (steps - 1)
     for it in range(iters):
@@ -330,9 +379,12 @@ def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
                 cap = pow2(int(f.max()))
                 return f, cap, dshard.spgemm_sharded(cur, a_dev, expand_cap=cap, mesh=mesh)
 
-            (f, cap, cur), secs = _timed(device, mesh, step)
+            kept = []
+            with _first_esc_call(kept) if it == 0 else contextlib.nullcontext():
+                (f, cap, cur), secs = _timed(device, mesh, step)
             best[k - 2] = min(best[k - 2], secs)
             if it == 0:
+                out["esc_held"] += _hold_esc(kept, f"A^{k}")
                 powers[k] = cur
                 fl = f.double()
                 out["steps"].append({
@@ -377,5 +429,5 @@ def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
     out["launches"] = {name: mod.LAUNCHES for name, mod in (
         ("spmm_dense_acc", spmm), ("spmm_band", bandplanes), ("spmm_group_dot", groupdot),
         ("sdd_block_scores", blocksparse), ("sortmerge_rows", sortmerge),
-        ("coalesce_blocks", coalesce))}
+        ("coalesce_blocks", coalesce), ("spgemm_esc", esc))}
     return out

@@ -93,8 +93,18 @@ def load() -> ctypes.CDLL:
         lib.sdd_block_scores_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, vp]
         lib.sortmerge_rows.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32, vp]
         lib.coalesce_blocks.argtypes = [vp, i64, i64, i64, i32, i32, *[vp] * 9, *[i64] * 4, vp]
+        lib.esc_counts.argtypes = [vp, vp, i64, vp, i64, vp, vp]
+        lib.esc_expand.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp, i64, i64, vp, vp, vp,
+                                   i64, i64, vp, vp, i32, vp]
+        lib.esc_merge_tiles.argtypes = [vp, vp, vp, i64, vp, i64, i32, vp]
+        lib.esc_merge_carry.argtypes = [vp, i64, i64, vp, i64, vp, vp, i64, i64, vp, i32, vp]
+        lib.esc_merge_emit.argtypes = [vp, vp, vp, i64, vp, i64, vp, i64, i64, vp, vp, vp, vp,
+                                       i32, vp]
+        lib.esc_merge_rows.argtypes = [vp, vp, i64, i64, vp, vp]
         for fn in (lib.spmm_dense_acc_f32, lib.spmm_band_f32, lib.spmm_group_dot_u8,
-                   lib.sdd_block_scores_f32, lib.sortmerge_rows, lib.coalesce_blocks):
+                   lib.sdd_block_scores_f32, lib.sortmerge_rows, lib.coalesce_blocks,
+                   lib.esc_counts, lib.esc_expand, lib.esc_merge_tiles, lib.esc_merge_carry,
+                   lib.esc_merge_emit, lib.esc_merge_rows):
             fn.restype = i32
         for fn in (lib.spmm_dense_acc_max_cols, lib.spmm_band_max_cols,
                    lib.spmm_group_dot_max_cols, lib.sdd_block_scores_max_pairs,

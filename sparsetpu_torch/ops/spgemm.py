@@ -1,7 +1,7 @@
 """ESC SpGEMM and SpAdd on the exact semirings: the counterpart of the ESC
 part of ``sparsetpu/ops/spgemm.py``.
 
-C = A x B by expand-sort-compress, in plain PyTorch tensor ops:
+C = A x B by expand-sort-compress:
 
   1. *symbolic*: flops(A, B) = sum over the entries (i, k) of A of
      row_nnz_B[k], the exact expansion size and a bound on nnz(C);
@@ -10,6 +10,9 @@ C = A x B by expand-sort-compress, in plain PyTorch tensor ops:
   3. *compress*: sort by (i, j) and merge duplicates with the semiring's add
      (``SparseCSR.from_coo_device``).
 
+On a CUDA card the u32 and u64 products run expansion and merge on the
+hand-written kernels of ``kernels/esc.py``; f32 products, and every product
+on the CPU, run them in plain PyTorch tensor ops (``spgemm_reference``).
 No step synchronises with the host, so a product on the GPU is one stream of
 launches.  An expansion larger than ``expand_cap`` poisons nnz to -1.
 
@@ -32,6 +35,7 @@ import torch
 
 from .. import obs
 from ..csr import SparseCSR
+from ..kernels import esc as kesc
 from . import segments
 from .segments import INT32_SENTINEL
 
@@ -160,7 +164,25 @@ def spgemm(a: SparseCSR, b: SparseCSR, expand_cap: int,
            out_cap: Optional[int] = None, narrow: bool = False) -> SparseCSR:
     """C = A x B on the semiring.  ``expand_cap`` must be >= flops(A, B)
     (:func:`symbolic_flops`), else nnz is poisoned to -1; ``out_cap``
-    defaults to ``expand_cap``.  ``narrow``: see :func:`expand_products`."""
+    defaults to ``expand_cap``.  A on a CUDA card with u32 or u64 values
+    takes the hand-written kernels (``kernels/esc.spgemm_esc``), where
+    ``narrow`` changes nothing (the full 64-bit product costs the same) but
+    is still checked; f32, and the CPU, take :func:`spgemm_reference`.
+    ``narrow``: see :func:`expand_products`."""
+    out_cap = out_cap or expand_cap
+    if kesc.takes(a):
+        if narrow and a.sr_name != "u64":
+            raise ValueError(f"narrow expansion is for u64, not {a.sr_name}")
+        return kesc.spgemm_esc(a, b, expand_cap, out_cap)
+    return spgemm_reference(a, b, expand_cap, out_cap, narrow)
+
+
+def spgemm_reference(a: SparseCSR, b: SparseCSR, expand_cap: int,
+                     out_cap: Optional[int] = None, narrow: bool = False) -> SparseCSR:
+    """:func:`spgemm` in PyTorch tensor ops: :func:`expand_products`, then
+    ``SparseCSR.from_coo_device``'s key sort and merge.  The f32 product,
+    and the plain version of ``kernels/esc.spgemm_esc``, which equals it bit
+    for bit on u32 and u64."""
     out_cap = out_cap or expand_cap
     i, j, v, valid, total = expand_products(a, b, expand_cap, narrow=narrow)
     c = SparseCSR.from_coo_device(i, j, v, a.n_rows, b.n_cols, a.sr, out_cap,
