@@ -3,8 +3,9 @@
 Numpy-only copies of the generators, bit-identical to the originals for the
 same seed: edge-list builders, Moore-neighbourhood lattices with optional
 torus wrap, random directed multigraphs, symmetric ``thin`` density
-reduction and the identity.  Results are COO triplets ``(rows, cols, vals
-u64, n)``.
+reduction and the identity; and Graph 500's Kronecker graph, which the JAX
+package does not have.  Results are COO triplets ``(rows, cols, vals u64,
+n)``.
 """
 
 from __future__ import annotations
@@ -155,3 +156,36 @@ def identity(n: int) -> Coo:
     """The n x n identity as COO, value 1 on the diagonal."""
     idx = np.arange(n, dtype=np.int32)
     return idx, idx.copy(), np.ones(n, np.uint64), n
+
+
+GRAPH500_INITIATOR = (0.57, 0.19, 0.19)  # A, B, C; D = 0.05 (the Graph 500 spec)
+
+
+def graph500_kronecker(scale: int, edgefactor: int = 16, draw_seed: int = 1,
+                       perm_seed: int = 0) -> Coo:
+    """Graph 500's Kronecker graph of 2^scale vertices, undirected as MIT
+    GraphChallenge publishes it: symmetrised, self-loops dropped,
+    duplicates merged, values 1.
+
+    The specification's ``kronecker_generator.m`` loop: edgefactor x 2^scale
+    edges, one bit of each end drawn per level from the initiator, on one
+    PCG64 stream, ``default_rng(draw_seed)``, in place of Octave's ``rand``;
+    then the vertices renamed by ``default_rng(perm_seed).permutation``.
+    The spec's shuffle of the edge list does not survive the merge."""
+    a, b, c = GRAPH500_INITIATOR
+    n = 1 << scale
+    m = edgefactor * n
+    rng = np.random.default_rng(draw_seed)
+    i = np.zeros(m, np.int64)
+    j = np.zeros(m, np.int64)
+    for level in range(scale):
+        ii = rng.random(m) > a + b
+        jj = rng.random(m) > np.where(ii, c / (1.0 - (a + b)), a / (a + b))
+        i += ii.astype(np.int64) << level
+        j += jj.astype(np.int64) << level
+    perm = np.random.default_rng(perm_seed).permutation(n)
+    i, j = perm[i], perm[j]
+    off = i != j
+    key = np.unique(np.concatenate([i[off] * n + j[off], j[off] * n + i[off]]))
+    return ((key // n).astype(np.int32), (key % n).astype(np.int32),
+            np.ones(len(key), np.uint64), n)

@@ -9,6 +9,8 @@ without CUDA) sees, beside PyTorch's own operators, where the port was:
 - ``sparsetpu_torch.esc/symbolic``, ``/expand``, ``/sort``, ``/merge``: the
   stages of the ESC SpGEMM (the flop count, the expansion, the key sort of
   the COO build and its duplicate merge);
+- ``sparsetpu_torch.tiled/count``, ``/pack``: the two column-panel sweeps
+  of the tiled dense routes (``ops/denseacc._two_sweeps``);
 - ``sparsetpu_torch.sync/<site>``: one read of a device value by the host,
   around the read alone, so its length is how long the host waited;
 - ``sparsetpu_torch.kernel/<kernel> bytes=<int>``: one launch of a
@@ -78,6 +80,12 @@ def item(x: torch.Tensor, site: str):
         return x.item()
     with torch._C._profiler._RecordFunctionFast(PREFIX + "sync/" + site):
         return x.item()
+
+
+def recording() -> bool:
+    """Whether a profiler runs: for a number that only a span carries and
+    that costs device work to count."""
+    return _profiler._is_profiler_enabled
 
 
 def kernel(name: str, nbytes=None, *args):

@@ -58,6 +58,8 @@ from .spgemm import max_value, pow2, symbolic_flops_exact
 IN_LIMIT_F32 = float(1 << 16)   # dense-dense f32 tier: inputs below this
 WIDE_LIMIT = float(1 << 30)     # dense-dense wide tier: outputs below this
 
+PANELS = 0  # column panels swept by the tiled routes, each sweep's counted
+
 
 def _check_pair(a: SparseCSR, b: SparseCSR) -> None:
     if a.n_cols != b.n_rows or a.sr_name != b.sr_name:
@@ -79,16 +81,24 @@ def _below(x: torch.Tensor, limit: float) -> torch.Tensor:
 def plan_dense_acc(a: SparseCSR) -> kspmm.SparseOperand:
     """The host half: A as the kernel's operand (int32 row offsets, the
     nnz valid columns, f32 values from the limbs), built on A's device.
-    Raises ValueError on an integer value >= 2^24 (a nonzero u64 hi limb
+    While a profiler runs, the operand also holds the number of distinct
+    columns, counted on the device and read once, so that each launch's
+    span carries its bytes; otherwise nothing is counted.  Raises
+    ValueError on an integer value >= 2^24 (a nonzero u64 hi limb
     included), which the f32 carrier cannot hold exactly."""
     if a.sr_name != "f32" and max_value(a) >= F32_EXACT_LIMIT:
         raise ValueError("the dense accumulator requires values < 2^24")
     nnz = obs.item(a.check().nnz, "nnz")
-    return kspmm.SparseOperand(a.row_ptr.int().contiguous(),
-                               a.col_idx[:nnz].int().contiguous(),
+    col = a.col_idx[:nnz].int().contiguous()
+    distinct = None
+    if obs.recording():
+        seen = torch.zeros(a.n_cols, dtype=torch.bool, device=a.device)
+        seen[col.long()] = True
+        distinct = obs.item(torch.count_nonzero(seen), "distinct_cols")
+    return kspmm.SparseOperand(a.row_ptr.int().contiguous(), col,
                                _values_to_f32(tuple(l[:nnz] for l in a.values),
                                               a.sr_name).contiguous(),
-                               a.n_rows, a.n_cols)
+                               a.n_rows, a.n_cols, distinct)
 
 
 def _values_to_f32(values, sr_name: str) -> torch.Tensor:
@@ -237,16 +247,21 @@ def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
     """The column-panel sweep of the tiled routes: sweep 1 counts every
     panel (one host fetch at its end) and gives the exact final row
     offsets; sweep 2 recomputes, packs and merges every panel.  ``exact0``:
-    an extra exactness flag (A's input bound), or None."""
+    an extra exactness flag (A's input bound), or None.  Under a profiler
+    the sweeps are the spans ``tiled/count`` and ``tiled/pack``; every
+    panel of each counts in ``PANELS``."""
+    global PANELS
     panels = [(lo, min(panel_cols, m - lo)) for lo in range(0, m, panel_cols)]
     counts_dev, exact_dev = [], [] if exact0 is None else [exact0]
-    for lo, w in panels:
-        cts, ex = _panel_counts(panel_fn, lo, w)
-        counts_dev.append(cts)
-        exact_dev.append(ex)
-    with obs.span("sync/panel_counts"):
-        counts_all = (torch.stack(counts_dev).cpu().numpy() if counts_dev
-                      else np.zeros((0, n), np.int64))
+    with obs.span("tiled/count"):
+        for lo, w in panels:
+            cts, ex = _panel_counts(panel_fn, lo, w)
+            counts_dev.append(cts)
+            exact_dev.append(ex)
+            PANELS += 1
+        with obs.span("sync/panel_counts"):
+            counts_all = (torch.stack(counts_dev).cpu().numpy() if counts_dev
+                          else np.zeros((0, n), np.int64))
     all_exact = obs.item(torch.stack(exact_dev).all(), "panel_exact") if exact_dev else True
     nnzp = counts_all.sum(axis=1)
     total = int(nnzp.sum())
@@ -255,13 +270,15 @@ def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
     cap = pow2(max(total, 1))
     cap_p = pow2(max(int(nnzp.max(initial=1)), 1))
     row_ptr = np.concatenate([[0], np.cumsum(counts_all.sum(axis=0))]).astype(np.int32)
-    final_row_ptr = torch.from_numpy(row_ptr).to(device)
-    dst_col = torch.full((cap + 1,), INT32_SENTINEL, dtype=torch.int32, device=device)
-    dst_limbs = by_name(sr_name).zeros((cap + 1,), device=device)  # slot cap: the dump
-    prior = torch.zeros(n, dtype=torch.int64, device=device)
-    for lo, w in panels:
-        prior = _panel_pack_merge(panel_fn, lo, w, final_row_ptr, prior, dst_col, dst_limbs,
-                                  sr_name, cap_p)
+    with obs.span("tiled/pack"):
+        final_row_ptr = torch.from_numpy(row_ptr).to(device)
+        dst_col = torch.full((cap + 1,), INT32_SENTINEL, dtype=torch.int32, device=device)
+        dst_limbs = by_name(sr_name).zeros((cap + 1,), device=device)  # slot cap: the dump
+        prior = torch.zeros(n, dtype=torch.int64, device=device)
+        for lo, w in panels:
+            prior = _panel_pack_merge(panel_fn, lo, w, final_row_ptr, prior, dst_col,
+                                      dst_limbs, sr_name, cap_p)
+            PANELS += 1
     return SparseCSR(row_ptr=final_row_ptr, col_idx=dst_col[:cap],
                      values=tuple(l[:cap] for l in dst_limbs),
                      nnz=torch.tensor(total if all_exact else -1, dtype=torch.int64,
