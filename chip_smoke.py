@@ -47,7 +47,16 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    A, every field of the product (row offsets, columns, both limbs, nnz)
    equal to the tensor ops' (``ops.spgemm.spgemm_reference``), six launches
    from a count set to 0 just before, with the kernels' and the key sort's
-   device ms and the bound (A^6 and A read once, C written once);
+   device ms and the bound (A^6 and A read once, C written once); then the
+   tiled route's count and pack kernels (``kernels/panelpack.py``) on the
+   first 2,048-column panel of A^2 of Graph 500's Kronecker graph at SCALE
+   17 (draw seed 1; 131,072 x 2,048 f32), each equal to its plain version
+   (the count table and the fault to count_nonzero and the exactness max,
+   every slot of the pack to the tensor ops' pack), two launches, with
+   each one's device ms, its plain version's and its bound, and the whole
+   A^2 through spgemm_auto (denseacc_tiled, 64 panels, 128 panel launches,
+   nnz 1,029,215,160, every field equal to the tensor-op sweeps' on the
+   card);
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
@@ -86,7 +95,7 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    launch per graph (the denseacc row); spgemm_auto runs on every sweep
    graph (its route printed, its product against the oracle), and once
    forced to denseacc_tiled on ER 27,000 x 32 (4 panels of 8,192, two
-   launches a panel).
+   dense-acc launches and two panel launches a panel).
    Then the real-graph study (``bench/real_graphs.py``) on the power-law
    substitutes of cora, nell and ogbn-arxiv at their published sizes: the
    pattern engine's int8 product against a float64 reference (panels with
@@ -157,7 +166,7 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    every kernel the einsum engine phase's launches, the device ms of its
    profiled calls and the max |error| on its inputs; the ESC kernels' row
    with the same for the esc chain, the real-graph, engine and dist
-   phases), the dist phase's
+   phases; the panel kernels' row), the dist phase's
    line (step times, transports, ring capacities, imbalance, the band, the
    scaling rows, the dry run), the card line, and the contract line
    ``{"ok": true, "device": {...}}`` last.
@@ -322,8 +331,21 @@ def profiled(fn, kernels):
 ESC_KERNELS = ("esc_counts", "esc_expand", "esc_merge_tiles", "esc_merge_carry",
                "esc_merge_emit", "esc_merge_rows")  # csrc/esc_products.cu's kernels
 ESC_PER_PRODUCT = len(ESC_KERNELS)  # launches of one spgemm_esc
-# the wrapper of several kernels: spgemm_esc (kernels/esc.py) launches six
-DEVICE_KERNELS = {"spgemm_esc": ESC_KERNELS}
+PANEL_KERNELS = ("panel_count", "panel_pack")  # csrc/panel_pack.cu's kernels, a wrapper each
+# the counters of several kernels: spgemm_esc (kernels/esc.py) launches
+# six; kernels/panelpack.LAUNCHES counts its two wrappers' launches, one
+# each a panel of the tiled routes
+DEVICE_KERNELS = {"spgemm_esc": ESC_KERNELS, "panelpack": PANEL_KERNELS}
+# a counter's wrappers, where they are not named as the counter
+WRAPPERS = {"panelpack": PANEL_KERNELS}
+
+
+def wrappers_of(modules):
+    """{wrapper name: (counter, kernel module)} of ``modules`` ({counter:
+    kernel module}): a counter's one wrapper of its own name, or the
+    wrappers ``WRAPPERS`` lists."""
+    return {w: (name, mod) for name, mod in modules.items()
+            for w in WRAPPERS.get(name, (name,))}
 
 
 def esc_kernel_row(dev, h30) -> dict:
@@ -379,6 +401,119 @@ def esc_kernel_row(dev, h30) -> dict:
     return row
 
 
+PANEL_SCALE, PANEL_COLS = 17, 2048  # graph500_s17.a2_auto's graph and panel width
+A2_NNZ_S17 = 1_029_215_160          # nnz of its A^2 (spbench/configs/graph500_s17.json)
+
+
+def panel_pack_row(dev) -> dict:
+    """The tiled route's count and pack kernels (``kernels/panelpack.py``)
+    at the ``graph500_s17.a2_auto`` cell's panel shape: Graph 500's
+    Kronecker A at SCALE 17 (draw seed 1) and its A^2's first panel of
+    2,048 columns, 131,072 x 2,048 f32 from the dense-acc kernel.  Each
+    kernel against its plain version on that panel (the count table
+    against count_nonzero, the fault word against the exactness max, the
+    pack against the tensor ops' pack at the same offsets, every slot), and
+    each one's device ms, its plain version's and its bound (the panel read
+    once, the counts or the entries written once).  Then the whole A^2
+    through ``spgemm_auto``: route denseacc_tiled, 64 panels, two panel
+    launches a panel, nnz(A^2) the configuration's, every field equal to
+    the tensor-op sweeps' on the card."""
+    from sparsetpu_torch.csr import SparseCSR
+    from sparsetpu_torch.graphs.generate import graph500_kronecker
+    from sparsetpu_torch.kernels import panelpack, spmm
+    from sparsetpu_torch.ops import denseacc
+    from sparsetpu_torch.ops import spgemm as ops_spgemm
+    from sparsetpu_torch.ops.segments import INT32_SENTINEL
+    from sparsetpu_torch.semiring import U64
+
+    rows, cols, vals, n = graph500_kronecker(PANEL_SCALE, 16, draw_seed=1)
+    a = SparseCSR.from_coo_host(rows, cols, vals, n, sr=U64, device=dev)
+    w = PANEL_COLS
+    op = denseacc.plan_dense_acc(a)
+    dense = spmm.spmm_dense_acc(op, denseacc._densify(a, 0, w))
+    i32 = dict(dtype=torch.int32, device=dev)
+    table, fault = torch.zeros((1, n), **i32), torch.zeros((), **i32)
+    panelpack.LAUNCHES = 0
+    panelpack.panel_count(dense, table, 0, fault, True)
+    want_counts = torch.count_nonzero(dense, dim=1)
+    compare("panel_count counts", table[0].long(), want_counts)
+    check(int(fault) == 0 and bool(denseacc._exact_f32(dense, "u64")),
+          "panel_count's fault disagrees with the exactness max")
+    nnz = int(want_counts.sum())
+    row_ptr = torch.zeros(n + 1, **i32)
+    row_ptr[1:] = torch.cumsum(want_counts, 0)
+    prior = torch.zeros((1, n), **i32)
+    cap = ops_spgemm.pow2(nnz)
+    col = torch.full((cap,), INT32_SENTINEL, **i32)
+    limbs = U64.zeros((cap,), device=dev)
+    panelpack.panel_pack(dense, 0, row_ptr, prior, 0, col, limbs, "u64", nnz)
+    check(panelpack.LAUNCHES == 2, f"{panelpack.LAUNCHES} panel launches, not 2")
+    plain_col = torch.full((cap + 1,), INT32_SENTINEL, **i32)
+    plain_limbs = U64.zeros((cap + 1,), device=dev)
+    zero_prior = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def pack_plain():
+        return denseacc._panel_pack_merge(lambda lo, width: (dense, None), 0, w, row_ptr,
+                                          zero_prior, plain_col, plain_limbs, "u64", cap)
+
+    pack_plain()
+    for name, g, p in zip(("col_idx", "lo", "hi"), (col, *limbs),
+                          (plain_col, *plain_limbs)):
+        compare(f"panel_pack {name}", g, p[:cap])
+    del plain_col, plain_limbs
+    count_b, pack_b = panelpack.count_bytes(n, w), panelpack.pack_bytes(n, w, nnz, 16)
+    row = dict(
+        count_ms=time_ms(lambda: panelpack.panel_count(dense, table, 0, fault, True), 20),
+        count_plain_ms=time_ms(lambda: (torch.count_nonzero(dense, dim=1),
+                                        denseacc._exact_f32(dense, "u64")), 5),
+        count_bound_ms=bound(count_b)[0],
+        pack_ms=time_ms(lambda: panelpack.panel_pack(dense, 0, row_ptr, prior, 0, col, limbs,
+                                                     "u64", nnz), 20),
+        pack_bound_ms=bound(pack_b)[0], panel_nnz=nnz,
+        timed_on=f"the first {w}-column panel of A^2 of Graph 500's SCALE-{PANEL_SCALE} "
+                 f"Kronecker graph (draw seed 1): {n} x {w} f32, {nnz} nonzeros")
+    # the plain pack's scratch (the panel's slots) is allocated in each call
+    plain_col = torch.full((cap + 1,), INT32_SENTINEL, **i32)
+    plain_limbs = U64.zeros((cap + 1,), device=dev)
+    row["pack_plain_ms"] = time_ms(pack_plain, 3)
+    del dense, table, col, limbs, plain_col, plain_limbs, want_counts
+    torch.cuda.empty_cache()
+    print(f"[3] panel_count and panel_pack on {row['timed_on']}: == plain (exact); count "
+          f"{row['count_ms']:.4f} ms (plain {row['count_plain_ms']:.4f}, bound "
+          f"{row['count_bound_ms']:.4f}), pack {row['pack_ms']:.4f} ms (plain "
+          f"{row['pack_plain_ms']:.4f}, bound {row['pack_bound_ms']:.4f})", flush=True)
+
+    flops = ops_spgemm.symbolic_flops_exact(a, a)
+    tiers, route = ops_spgemm.auto_route(a, a, flops)
+    panels = -(-n // ops_spgemm.dense_acc_panel_cols(n))
+    check(not tiers and route == "denseacc_tiled" and panels == n // w,
+          f"spgemm_auto's route {tiers} {route}, {panels} panels: not denseacc_tiled, {n // w}")
+    panelpack.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ops_spgemm.spgemm_auto(a, a)
+    torch.cuda.synchronize()
+    row["a2_ms"] = (time.perf_counter() - t0) * 1e3
+    check(panelpack.LAUNCHES == 2 * panels,
+          f"the tiled A^2 made {panelpack.LAUNCHES} panel launches, not {2 * panels}")
+    check(int(got.nnz) == A2_NNZ_S17, f"nnz(A^2) {int(got.nnz)} != {A2_NNZ_S17}")
+    op = denseacc.plan_dense_acc(a)
+    want = denseacc._sweeps_in_tensor_ops(
+        n, n, "u64", [(lo, min(w, n - lo)) for lo in range(0, n, w)],
+        lambda lo, width: denseacc._panel_dense(op, a, lo, width), None, dev)
+    for name, g, p in zip(("row_ptr", "col_idx", "lo", "hi", "nnz"),
+                          (got.row_ptr, got.col_idx, *got.values, got.nnz),
+                          (want.row_ptr, want.col_idx, *want.values, want.nnz)):
+        compare(f"tiled A^2 {name}", g, p)
+    row.update(a2_panels=panels, a2_panel_launches=panelpack.LAUNCHES, a2_nnz=int(got.nnz))
+    del got, want, op
+    torch.cuda.empty_cache()
+    print(f"[3] spgemm_auto A^2 of the SCALE-{PANEL_SCALE} graph: denseacc_tiled, {panels} "
+          f"panels, {row['a2_panel_launches']} panel launches, nnz {row['a2_nnz']}, == the "
+          f"tensor-op sweeps in every field; {row['a2_ms']:.1f} ms", flush=True)
+    return row
+
+
 def sdd_library_mask(qi, ki, m: int, n: int):
     """The (m, n) CSR of every element of the listed 128 x 128 blocks (zero
     values): the sampling mask of torch.sparse.sampled_addmm."""
@@ -393,8 +528,10 @@ def sdd_library_mask(qi, ki, m: int, n: int):
 
 
 # the kernels the real-graph path can launch (sort-merge only where rowcat's
-# fallback fires, ESC's on the router's "esc" route)
-REAL_GRAPH_KERNELS = ("spmm_dense_acc", "coalesce_blocks", "sortmerge_rows", "spgemm_esc")
+# fallback fires, ESC's on the router's "esc" route, the panel kernels with
+# dense-acc's on the "denseacc_tiled" route: nell_pl's A^4)
+REAL_GRAPH_KERNELS = ("spmm_dense_acc", "coalesce_blocks", "sortmerge_rows", "spgemm_esc",
+                      "panelpack")
 
 
 def flat_tensors(out):
@@ -411,15 +548,17 @@ def flat_tensors(out):
 
 @contextlib.contextmanager
 def kernel_inputs(real_graphs, modules, captured):
-    """Within the block, each kernel wrapper of ``modules`` ({name: kernel
-    module}) keeps the arguments of its first call in each repeated
-    ``spgemm_auto`` call of the real-graph driver (a chain step's timed
-    call: the same operands as the step's first call) in ``captured[(name,
-    route)]``.  The step's first call, the one profiled, keeps nothing
-    alive.  The wrappers run as before; nothing is copied."""
+    """Within the block, each kernel wrapper of ``modules`` ({counter:
+    kernel module}; ``wrappers_of``) keeps the arguments of its first call
+    in each repeated ``spgemm_auto`` call of the real-graph driver (a chain
+    step's timed call: the same operands as the step's first call) in
+    ``captured[(wrapper, route)]``.  The step's first call, the one
+    profiled, keeps nothing alive.  The wrappers run as before; nothing is
+    copied."""
     state = {}
     auto = real_graphs.spgemm_auto
-    wrappers = {name: getattr(mod, name) for name, mod in modules.items()}
+    named = wrappers_of(modules)
+    wrappers = {name: getattr(mod, name) for name, (_, mod) in named.items()}
 
     def routed(a, b, **kwargs):
         last = state.get("b")
@@ -437,14 +576,32 @@ def kernel_inputs(real_graphs, modules, captured):
         return call
 
     real_graphs.spgemm_auto = routed
-    for name, mod in modules.items():
+    for name, (_, mod) in named.items():
         setattr(mod, name, keeping(name))
     try:
         yield
     finally:
         real_graphs.spgemm_auto = auto
-        for name, mod in modules.items():
+        for name, (_, mod) in named.items():
             setattr(mod, name, wrappers[name])
+
+
+def fresh_outputs(name, args):
+    """The panel kernels write into their arguments (positional, as
+    ``ops/denseacc``'s sweeps pass them): the arguments with fresh outputs
+    in their place, and those outputs.  The count's table and fault word
+    start at 0, the pack's columns at INT32_SENTINEL and its limbs at 0, as
+    the product's slots that no panel fills."""
+    from sparsetpu_torch.ops.segments import INT32_SENTINEL
+
+    args = list(args)
+    if name == "panel_count":  # (dense, table, p, fault, check)
+        args[1], args[3] = torch.zeros_like(args[1]), torch.zeros_like(args[3])
+        return args, [args[1][args[2]], args[3]]
+    # panel_pack: (dense, lo, row_ptr, prior, p, col_idx, limbs, sr_name, nnz)
+    args[5] = torch.full_like(args[5], INT32_SENTINEL)
+    args[6] = tuple(torch.zeros_like(l) for l in args[6])
+    return args, [args[5], *args[6]]
 
 
 def plain_version(name, mod, args, kwargs):
@@ -452,10 +609,33 @@ def plain_version(name, mod, args, kwargs):
     materialises an (nnz, m) gather (82 GB for nell's A^2 against a 5,120
     column panel), so it runs in column blocks of at most 4 GB: each column
     of C reads the same column of P alone, so the blocks join into the
-    same C.  ESC's is the tensor ops of ``ops.spgemm``."""
+    same C.  ESC's is the tensor ops of ``ops.spgemm``.  The panel count's
+    is ``count_nonzero`` a row and the exactness max (a fault where a cell
+    is not below 2^24); the panel pack's is the tensor ops' sweep 2
+    (``ops/denseacc._panel_pack_merge``) at the same offsets, into fresh
+    slots (``fresh_outputs``' fill), every slot of the product compared."""
     if name == "spgemm_esc":
         from sparsetpu_torch.ops.spgemm import spgemm_reference
         return spgemm_reference(*args, **kwargs)
+    if name in PANEL_KERNELS:
+        from sparsetpu_torch.ops import denseacc
+        from sparsetpu_torch.ops.segments import INT32_SENTINEL
+
+        dense = args[0]
+        if name == "panel_count":
+            _, _, _, fault, check_exact = args
+            fault = ((~denseacc._exact_f32(dense, "u64")).int() if check_exact
+                     else torch.zeros_like(fault))
+            return [torch.count_nonzero(dense, dim=1).int(), fault]
+        _, lo, row_ptr, prior, p, col_idx, limbs, sr_name, nnz = args
+        cap = col_idx.numel()
+        # slot cap takes the tensor ops' slots past the panel's entries
+        col = torch.full((cap + 1,), INT32_SENTINEL, dtype=col_idx.dtype, device=dense.device)
+        plain_limbs = [torch.zeros(cap + 1, dtype=l.dtype, device=dense.device) for l in limbs]
+        denseacc._panel_pack_merge(lambda *_: (dense, None), lo, dense.shape[1], row_ptr,
+                                   prior[p].long(), col, plain_limbs, sr_name,
+                                   denseacc.pow2(max(nnz, 1)))
+        return [col[:cap], *(l[:cap] for l in plain_limbs)]
     ref = getattr(mod, f"{name}_reference")
     if name == "spmm_dense_acc":
         op, p = args[0], args[1]
@@ -467,30 +647,37 @@ def plain_version(name, mod, args, kwargs):
 
 
 def hold_kernels(where, captured, counters, errs):
-    """Run each kernel call kept in ``captured`` ({(name, route): (args,
+    """Run each kernel call kept in ``captured`` ({(wrapper, route): (args,
     kwargs)}) again beside its plain version on the same inputs (exact; the
-    max |error| into ``errs``; that launch is not counted) and release
-    them; returns the kernels compared."""
-    compared = set()
+    max |error| into ``errs[wrapper]``; that launch is not counted) and
+    release them; returns the counters compared: those whose every wrapper
+    was held."""
+    named = wrappers_of(counters)
+    held = set()
     for (name, route), (args, kwargs) in sorted(captured.items()):
-        mod = counters[name]
+        mod = named[name][1]
         n_path = mod.LAUNCHES
-        got = flat_tensors(getattr(mod, name)(*args, **kwargs))
+        if name in PANEL_KERNELS:  # in place: the kernel writes fresh outputs
+            args, got = fresh_outputs(name, args)
+            getattr(mod, name)(*args, **kwargs)
+        else:
+            got = flat_tensors(getattr(mod, name)(*args, **kwargs))
         mod.LAUNCHES = n_path  # a comparison's launch is not the path's
         want = flat_tensors(plain_version(name, mod, args, kwargs))
         check(len(got) == len(want), f"{where} {name}: {len(got)} outputs "
               f"!= the plain version's {len(want)}")
         err = max(compare(f"{where} {name} ({route})", g, w) for g, w in zip(got, want))
         errs[name] = max(errs.get(name, 0.0), err)
-        compared.add(name)
+        held.add(name)
         # dense-acc's P (a panel of the right operand), coalesce's first
-        # stream, sort-merge's columns, ESC's right operand's row offsets
+        # stream, sort-merge's columns, ESC's right operand's row offsets,
+        # the panel kernels' dense C panel
+        shown = args[0] if name in PANEL_KERNELS else flat_tensors(args[1])[0]
         print(f"[4] {where} {name} on its first call's inputs in the {route} product "
-              f"({tuple(flat_tensors(args[1])[0].shape)}) == the plain version (exact)",
-              flush=True)
-        del got, want
+              f"({tuple(shown.shape)}) == the plain version (exact)", flush=True)
+        del got, want, args
     captured.clear()
-    return compared
+    return {key for key in counters if all(w in held for w in WRAPPERS.get(key, (key,)))}
 
 
 def chain_checks(label, a, counters, captured, errs):
@@ -666,14 +853,16 @@ def engine_kernel_inputs(modules, captured, products):
     """Within the block, every ``spgemm_auto`` call (the einsum engine's
     chain tier calls it through ``ops.spgemm``) appends (product count,
     dense-dense tiers, route) to ``products``, and each kernel wrapper of
-    ``modules`` ({name: kernel module}) keeps the arguments of its first
-    call under each route in ``captured[(name, route)]``, unless one is
-    kept already.  The wrappers run as before; nothing is copied."""
+    ``modules`` ({counter: kernel module}; ``wrappers_of``) keeps the
+    arguments of its first call under each route in ``captured[(wrapper,
+    route)]``, unless one is kept already.  The wrappers run as before;
+    nothing is copied."""
     from sparsetpu_torch.ops import spgemm as spgemm_ops
 
     state = {}
     auto = spgemm_ops.spgemm_auto
-    wrappers = {name: getattr(mod, name) for name, mod in modules.items()}
+    named = wrappers_of(modules)
+    wrappers = {name: getattr(mod, name) for name, (_, mod) in named.items()}
 
     def routed(a, b, **kwargs):
         flops = spgemm_ops.symbolic_flops_exact(a, b)
@@ -693,13 +882,13 @@ def engine_kernel_inputs(modules, captured, products):
         return call
 
     spgemm_ops.spgemm_auto = routed
-    for name, mod in modules.items():
+    for name, (_, mod) in named.items():
         setattr(mod, name, keeping(name))
     try:
         yield
     finally:
         spgemm_ops.spgemm_auto = auto
-        for name, mod in modules.items():
+        for name, (_, mod) in named.items():
             setattr(mod, name, wrappers[name])
 
 
@@ -1072,7 +1261,7 @@ def main() -> None:
     from sparsetpu_torch.csr import HostCSR
     from sparsetpu_torch.graphs.generate import random_graph
     from sparsetpu_torch.kernels import (_build, bandmm, bandplanes, blocksparse, coalesce,
-                                         esc, groupdot, sortmerge, spmm)
+                                         esc, groupdot, panelpack, sortmerge, spmm)
     from sparsetpu_torch.ops import colchunk, denseacc, slab as slab_ops
     from sparsetpu_torch.ops.spgemm import (auto_route, dense_acc_panel_cols, spgemm_auto,
                                             symbolic_flops_exact)
@@ -1086,7 +1275,8 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
     counters = {"spmm_dense_acc": spmm, "spmm_band": bandplanes,
                 "spmm_group_dot": groupdot, "sdd_block_scores": blocksparse,
-                "sortmerge_rows": sortmerge, "coalesce_blocks": coalesce, "spgemm_esc": esc}
+                "sortmerge_rows": sortmerge, "coalesce_blocks": coalesce, "spgemm_esc": esc,
+                "panelpack": panelpack}
 
     def reset_counts():
         for mod in counters.values():
@@ -1669,6 +1859,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     esc_row = esc_kernel_row(dev, h30)
     torch.cuda.empty_cache()
+    panel_row = panel_pack_row(dev)
 
     since_start("phase 4 (the chains)")
     # ---- phase 4: the port's paths at full scale
@@ -1862,12 +2053,17 @@ def main() -> None:
             spgemm_bench.check_against_oracle(c, want, f"spgemm_auto denseacc_tiled {key}")
             check(n_launch == 2 * n_panels,
                   f"denseacc_tiled made {n_launch} spmm_dense_acc launches, not {2 * n_panels}")
+            check(panelpack.LAUNCHES == 2 * n_panels,
+                  f"denseacc_tiled made {panelpack.LAUNCHES} panel launches, not "
+                  f"{2 * n_panels}")
             auto["denseacc_tiled er,27000,32"] = dict(panels=n_panels, panel_cols=w,
                                                       call_ms=t_tiled,
-                                                      spmm_dense_acc_launches=n_launch)
+                                                      spmm_dense_acc_launches=n_launch,
+                                                      panel_launches=panelpack.LAUNCHES)
             print(f"[4] spgemm_auto(kernel='denseacc_tiled') ER 27000x32: {n_panels} panels of "
                   f"{w}; == oracle's whole CSR; one call {t_tiled:.4f} ms; spmm_dense_acc "
-                  f"launches {n_launch}", flush=True)
+                  f"launches {n_launch}, panel_count and panel_pack launches "
+                  f"{panelpack.LAUNCHES}", flush=True)
             del c
         del a_x, host, want
         torch.cuda.empty_cache()
@@ -2092,6 +2288,14 @@ def main() -> None:
                    dist_launches=dist_out["esc"]["launches"],
                    dist_steps_held=dist_out["esc"]["held"])
     print(json.dumps({"esc_products": esc_row}), flush=True)
+    # the panel kernels on the main path: the real-graph and engine phases'
+    # launches (both kernels') and each kernel's hold against the tensor ops
+    # on the phases' own inputs (None: not launched there)
+    panel_row.update(real_graph_launches=rg_launches["panelpack"],
+                     real_graph_max_abs_err={w: rg_err.get(w) for w in PANEL_KERNELS},
+                     engine_launches=eng_launches["panelpack"],
+                     engine_max_abs_err={w: eng_err.get(w) for w in PANEL_KERNELS})
+    print(json.dumps({"panel_pack": panel_row}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -362,7 +362,8 @@ def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
       steps held, ``_hold_esc``).
 
     Whole CSRs come back from rank 0 only."""
-    from ..kernels import bandplanes, blocksparse, coalesce, esc, groupdot, sortmerge, spmm
+    from ..kernels import (bandplanes, blocksparse, coalesce, esc, groupdot, panelpack,
+                           sortmerge, spmm)
 
     mesh = dshard.default_mesh(dist.get_world_size())
     rank0 = dshard.mesh_rank(mesh) == 0
@@ -429,5 +430,5 @@ def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
     out["launches"] = {name: mod.LAUNCHES for name, mod in (
         ("spmm_dense_acc", spmm), ("spmm_band", bandplanes), ("spmm_group_dot", groupdot),
         ("sdd_block_scores", blocksparse), ("sortmerge_rows", sortmerge),
-        ("coalesce_blocks", coalesce), ("spgemm_esc", esc))}
+        ("coalesce_blocks", coalesce), ("spgemm_esc", esc), ("panelpack", panelpack))}
     return out

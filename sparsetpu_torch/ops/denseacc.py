@@ -13,7 +13,9 @@ at the end; their cost does not depend on the number of partial products:
   at a time; sweep 1 counts each panel's row nonzeros and so gives the exact
   final row offsets, sweep 2 recomputes each panel and writes its entries
   at per-row offsets (panels own disjoint ascending column ranges, so no
-  global sort);
+  global sort).  On a CUDA card each sweep's work on a panel is one
+  hand-written kernel (``kernels/panelpack``, ``csrc/panel_pack.cu``),
+  on the CPU the tensor ops, their plain version;
 - dense-dense (``spgemm_dense_dense``, ``spgemm_dense_dense_tiled``): both
   operands densified and one matrix product.  JAX computes it outside any
   Pallas kernel, so it stays ``torch.matmul``: fp32 with TF32 off (it raises
@@ -50,6 +52,7 @@ import torch
 
 from .. import obs
 from ..csr import F32_EXACT_LIMIT, SparseCSR
+from ..kernels import panelpack as kpanel
 from ..kernels import spmm as kspmm
 from ..semiring import by_name
 from .segments import INT32_SENTINEL
@@ -208,27 +211,29 @@ def spgemm_dense_acc(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None) 
 
 def _panel_dense(op: kspmm.SparseOperand, b: SparseCSR, lo: int, w: int):
     """One dense C panel, columns [lo, lo + w): B's panel densified (no
-    full B_dense ever exists) through the dense-accumulator SpMM, and the
-    panel's exactness flag."""
-    dense = kspmm.spmm_dense_acc(op, _densify(b, lo, w))
-    return dense, _exact_f32(dense, b.sr_name)
+    full B_dense ever exists) through the dense-accumulator SpMM.  No flag
+    of the inputs (None): A's bound is ``plan_dense_acc``'s, the output
+    bound the sweeps'."""
+    return kspmm.spmm_dense_acc(op, _densify(b, lo, w)), None
 
 
-def _panel_counts(panel_fn, lo: int, w: int):
-    """Sweep 1: per-row nonzeros of one panel, and its exactness flag.
+def _panel_counts(panel_fn, lo: int, w: int, sr_name: str):
+    """Sweep 1 in tensor ops: per-row nonzeros of one panel, and its
+    exactness flag (the output bound and the inputs' flag, if any).
     ``panel_fn(lo, w)`` computes the dense panel (``_panel_dense`` or
-    ``_mm_panel_dense``) and its flag."""
-    dense, exact = panel_fn(lo, w)
-    return torch.count_nonzero(dense, dim=1), exact
+    ``_mm_panel_dense``) and its inputs' flag or None."""
+    dense, in_ok = panel_fn(lo, w)
+    exact = _exact_f32(dense, sr_name)
+    return torch.count_nonzero(dense, dim=1), exact if in_ok is None else exact & in_ok
 
 
 def _panel_pack_merge(panel_fn, lo: int, w: int, final_row_ptr: torch.Tensor,
                       prior: torch.Tensor, dst_col: torch.Tensor, dst_limbs, sr_name: str,
                       cap_p: int) -> torch.Tensor:
-    """Sweep 2: recompute one dense panel, pack its nonzeros in row-major
-    order and write them into the final arrays at per-row offsets
-    (``final_row_ptr`` + the entries of earlier panels, ``prior``), in
-    place; returns the updated ``prior``."""
+    """Sweep 2 in tensor ops: recompute one dense panel, pack its nonzeros
+    in row-major order and write them into the final arrays at per-row
+    offsets (``final_row_ptr`` + the entries of earlier panels, ``prior``),
+    in place; returns the updated ``prior``."""
     dense, _ = panel_fn(lo, w)
     counts, rows, col, limbs, valid, _ = _pack(dense, sr_name, cap_p)
     r = rows.clamp(max=dense.shape[0] - 1)
@@ -245,17 +250,28 @@ def _panel_pack_merge(panel_fn, lo: int, w: int, final_row_ptr: torch.Tensor,
 def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
                 exact0: Optional[torch.Tensor], device) -> SparseCSR:
     """The column-panel sweep of the tiled routes: sweep 1 counts every
-    panel (one host fetch at its end) and gives the exact final row
-    offsets; sweep 2 recomputes, packs and merges every panel.  ``exact0``:
-    an extra exactness flag (A's input bound), or None.  Under a profiler
-    the sweeps are the spans ``tiled/count`` and ``tiled/pack``; every
-    panel of each counts in ``PANELS``."""
-    global PANELS
+    panel and gives the exact final row offsets; sweep 2 recomputes, packs
+    and merges every panel.  ``exact0``: an extra exactness flag (A's input
+    bound), or None.  On a CUDA card each sweep's work on a panel is one
+    hand-written kernel (``kernels/panelpack``, ``_sweeps_on_kernels``);
+    on the CPU it is the tensor ops (``_sweeps_in_tensor_ops``), their plain
+    version.  Under a profiler the sweeps are the spans ``tiled/count`` and
+    ``tiled/pack``; every panel of each counts in ``PANELS``."""
     panels = [(lo, min(panel_cols, m - lo)) for lo in range(0, m, panel_cols)]
+    sweeps = _sweeps_on_kernels if device.type == "cuda" else _sweeps_in_tensor_ops
+    return sweeps(n, m, sr_name, panels, panel_fn, exact0, device)
+
+
+def _sweeps_in_tensor_ops(n: int, m: int, sr_name: str, panels, panel_fn,
+                          exact0: Optional[torch.Tensor], device) -> SparseCSR:
+    """The two sweeps in tensor ops: the counts fetched to the host at the
+    end of sweep 1, which gives the row offsets there; each panel packed by
+    ``_pack`` and scattered into the product."""
+    global PANELS
     counts_dev, exact_dev = [], [] if exact0 is None else [exact0]
     with obs.span("tiled/count"):
         for lo, w in panels:
-            cts, ex = _panel_counts(panel_fn, lo, w)
+            cts, ex = _panel_counts(panel_fn, lo, w, sr_name)
             counts_dev.append(cts)
             exact_dev.append(ex)
             PANELS += 1
@@ -265,8 +281,7 @@ def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
     all_exact = obs.item(torch.stack(exact_dev).all(), "panel_exact") if exact_dev else True
     nnzp = counts_all.sum(axis=1)
     total = int(nnzp.sum())
-    if total >= 2**31:
-        raise ValueError(f"{total} output entries do not fit int32 row offsets")
+    _check_total(total)
     cap = pow2(max(total, 1))
     cap_p = pow2(max(int(nnzp.max(initial=1)), 1))
     row_ptr = np.concatenate([[0], np.cumsum(counts_all.sum(axis=0))]).astype(np.int32)
@@ -284,6 +299,71 @@ def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
                      nnz=torch.tensor(total if all_exact else -1, dtype=torch.int64,
                                       device=device),
                      n_rows=n, n_cols=m, sr_name=sr_name)
+
+
+def _check_total(total: int) -> None:
+    if total >= 2**31:
+        raise ValueError(f"{total} output entries do not fit int32 row offsets")
+
+
+def _sweeps_on_kernels(n: int, m: int, sr_name: str, panels, panel_fn,
+                       exact0: Optional[torch.Tensor], device) -> SparseCSR:
+    """The two sweeps on the card: sweep 1 counts each panel into an int32
+    (panels, n) table and ORs its exactness fault into one word
+    (``panelpack.panel_count``); the offsets come from the table on the
+    device, and one small read brings the per-panel totals to the host,
+    which sizes the product; sweep 2 (``_pack_sweep``) writes each panel's
+    entries straight into it.  The exactness flag stays on the device and
+    poisons nnz there."""
+    global PANELS
+    table = torch.empty((len(panels), n), dtype=torch.int32, device=device)
+    fault = torch.zeros((), dtype=torch.int32, device=device)
+    flags = [] if exact0 is None else [exact0]
+    with obs.span("tiled/count"):
+        for p, (lo, w) in enumerate(panels):
+            dense, in_ok = panel_fn(lo, w)
+            kpanel.panel_count(dense, table, p, fault, sr_name != "f32")
+            del dense  # before the next panel is computed
+            if in_ok is not None:
+                flags.append(in_ok)
+            PANELS += 1
+        exact = fault == 0
+        if flags:
+            exact = exact & torch.stack(flags).all()
+        with obs.span("sync/panel_counts"):
+            nnzp = table.sum(dim=1).tolist()
+    total = sum(nnzp)
+    _check_total(total)
+    with obs.span("tiled/pack"):
+        return _pack_sweep(n, m, sr_name, panels, panel_fn, table, nnzp, total, exact, device)
+
+
+def _pack_sweep(n: int, m: int, sr_name: str, panels, panel_fn, table: torch.Tensor,
+                nnzp, total: int, exact: torch.Tensor, device) -> SparseCSR:
+    """Sweep 2 on the card, with no host read: the row offsets (the
+    exclusive cumsum of the table's column sums) and each panel's offsets
+    in its rows (the table's exclusive cumsum over the panels) on the
+    device, the product allocated at pow2(total) slots, the slots past the
+    total filled (column INT32_SENTINEL, limbs 0), each panel's entries
+    written by ``panelpack.panel_pack``, and nnz poisoned to -1 where
+    ``exact`` (a device bool) is false."""
+    global PANELS
+    row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    row_ptr[1:] = torch.cumsum(table.sum(dim=0), dim=0)
+    prior = torch.cumsum(table, dim=0, dtype=torch.int32).sub_(table)
+    cap = pow2(max(total, 1))
+    col = torch.empty(cap, dtype=torch.int32, device=device)
+    col[total:] = INT32_SENTINEL
+    limbs = tuple(torch.empty(cap, dtype=d, device=device) for d in kpanel.LIMB_DTYPES[sr_name])
+    for l in limbs:
+        l[total:] = 0
+    for p, (lo, w) in enumerate(panels):
+        dense, _ = panel_fn(lo, w)
+        kpanel.panel_pack(dense, lo, row_ptr, prior, p, col, limbs, sr_name, nnzp[p])
+        del dense
+        PANELS += 1
+    return SparseCSR(row_ptr=row_ptr, col_idx=col, values=limbs,
+                     nnz=torch.where(exact, total, -1), n_rows=n, n_cols=m, sr_name=sr_name)
 
 
 @obs.traced("product/denseacc_tiled")
@@ -380,13 +460,14 @@ def spgemm_dense_dense(a: SparseCSR, b: SparseCSR, out_cap: Optional[int] = None
 
 def _mm_panel_dense(ad: torch.Tensor, b: SparseCSR, lo: int, w: int):
     """B's columns [lo, lo + w) densified and multiplied by the densified A
-    in fp32; the dense C panel and its exactness flag (A's input bound is
-    checked once by the caller)."""
+    in fp32; the dense C panel and, on an integer semiring, B's panel's
+    input bound (A's is checked once by the caller, the output bound by the
+    sweeps), else None."""
     panel = _densify(b, lo, w)
     dense = ad @ panel
     if b.sr_name == "f32":
-        return dense, torch.ones((), dtype=torch.bool, device=dense.device)
-    return dense, _below(panel, IN_LIMIT_F32) & _below(dense, F32_EXACT_LIMIT)
+        return dense, None
+    return dense, _below(panel, IN_LIMIT_F32)
 
 
 def densedense_tiled_panel_cols(n: int, k: int, budget_bytes: float = 6e9) -> int:
