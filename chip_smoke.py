@@ -51,12 +51,12 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    tiled route's count and pack kernels (``kernels/panelpack.py``) on the
    first 2,048-column panel of A^2 of Graph 500's Kronecker graph at SCALE
    17 (draw seed 1; 131,072 x 2,048 f32), each equal to its plain version
-   (the count table and the fault to count_nonzero and the exactness max,
-   every slot of the pack to the tensor ops' pack), two launches, with
+   (``panel_count_reference``: the count table and the fault word;
+   ``panel_pack_reference``: every slot of the pack), two launches, with
    each one's device ms, its plain version's and its bound, and the whole
    A^2 through spgemm_auto (denseacc_tiled, 64 panels, 128 panel launches,
-   nnz 1,029,215,160, every field equal to the tensor-op sweeps' on the
-   card);
+   nnz 1,029,215,160, every field equal to the same sweeps' with the plain
+   versions in the kernels' place, on the card);
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
@@ -410,14 +410,15 @@ def panel_pack_row(dev) -> dict:
     at the ``graph500_s17.a2_auto`` cell's panel shape: Graph 500's
     Kronecker A at SCALE 17 (draw seed 1) and its A^2's first panel of
     2,048 columns, 131,072 x 2,048 f32 from the dense-acc kernel.  Each
-    kernel against its plain version on that panel (the count table
-    against count_nonzero, the fault word against the exactness max, the
-    pack against the tensor ops' pack at the same offsets, every slot), and
-    each one's device ms, its plain version's and its bound (the panel read
-    once, the counts or the entries written once).  Then the whole A^2
-    through ``spgemm_auto``: route denseacc_tiled, 64 panels, two panel
-    launches a panel, nnz(A^2) the configuration's, every field equal to
-    the tensor-op sweeps' on the card."""
+    kernel against its plain version (``panel_count_reference``,
+    ``panel_pack_reference``) on that panel into outputs of its own (the
+    count table and the fault word; every slot of the pack at the same
+    offsets), and each one's device ms, its plain version's and its bound
+    (the panel read once, the counts or the entries written once).  Then
+    the whole A^2 through ``spgemm_auto``: route denseacc_tiled, 64 panels,
+    two panel launches a panel, nnz(A^2) the configuration's, every field
+    equal to the same sweeps' with the plain versions in the kernels'
+    place, on the card."""
     from sparsetpu_torch.csr import SparseCSR
     from sparsetpu_torch.graphs.generate import graph500_kronecker
     from sparsetpu_torch.kernels import panelpack, spmm
@@ -435,48 +436,44 @@ def panel_pack_row(dev) -> dict:
     table, fault = torch.zeros((1, n), **i32), torch.zeros((), **i32)
     panelpack.LAUNCHES = 0
     panelpack.panel_count(dense, table, 0, fault, True)
-    want_counts = torch.count_nonzero(dense, dim=1)
-    compare("panel_count counts", table[0].long(), want_counts)
-    check(int(fault) == 0 and bool(denseacc._exact_f32(dense, "u64")),
-          "panel_count's fault disagrees with the exactness max")
-    nnz = int(want_counts.sum())
+    plain_table, plain_fault = torch.zeros_like(table), torch.zeros_like(fault)
+
+    def count_plain():
+        panelpack.panel_count_reference(dense, plain_table, 0, plain_fault, True)
+
+    count_plain()
+    compare("panel_count counts", table, plain_table)
+    compare("panel_count fault", fault, plain_fault)
+    check(int(fault) == 0, "panel_count found a cell of the exact A^2 not below 2^24")
+    nnz = int(table.sum())
     row_ptr = torch.zeros(n + 1, **i32)
-    row_ptr[1:] = torch.cumsum(want_counts, 0)
+    row_ptr[1:] = torch.cumsum(table[0], 0)
     prior = torch.zeros((1, n), **i32)
     cap = ops_spgemm.pow2(nnz)
     col = torch.full((cap,), INT32_SENTINEL, **i32)
     limbs = U64.zeros((cap,), device=dev)
     panelpack.panel_pack(dense, 0, row_ptr, prior, 0, col, limbs, "u64", nnz)
     check(panelpack.LAUNCHES == 2, f"{panelpack.LAUNCHES} panel launches, not 2")
-    plain_col = torch.full((cap + 1,), INT32_SENTINEL, **i32)
-    plain_limbs = U64.zeros((cap + 1,), device=dev)
-    zero_prior = torch.zeros(n, dtype=torch.int64, device=dev)
+    plain_col = torch.full_like(col, INT32_SENTINEL)
+    plain_limbs = tuple(torch.zeros_like(l) for l in limbs)
 
     def pack_plain():
-        return denseacc._panel_pack_merge(lambda lo, width: (dense, None), 0, w, row_ptr,
-                                          zero_prior, plain_col, plain_limbs, "u64", cap)
+        panelpack.panel_pack_reference(dense, 0, row_ptr, prior, 0, plain_col, plain_limbs,
+                                       "u64", nnz)
 
     pack_plain()
-    for name, g, p in zip(("col_idx", "lo", "hi"), (col, *limbs),
-                          (plain_col, *plain_limbs)):
-        compare(f"panel_pack {name}", g, p[:cap])
-    del plain_col, plain_limbs
+    for name, g, p in zip(("col_idx", "lo", "hi"), (col, *limbs), (plain_col, *plain_limbs)):
+        compare(f"panel_pack {name}", g, p)
     count_b, pack_b = panelpack.count_bytes(n, w), panelpack.pack_bytes(n, w, nnz, 16)
     row = dict(
         count_ms=time_ms(lambda: panelpack.panel_count(dense, table, 0, fault, True), 20),
-        count_plain_ms=time_ms(lambda: (torch.count_nonzero(dense, dim=1),
-                                        denseacc._exact_f32(dense, "u64")), 5),
-        count_bound_ms=bound(count_b)[0],
+        count_plain_ms=time_ms(count_plain, 5), count_bound_ms=bound(count_b)[0],
         pack_ms=time_ms(lambda: panelpack.panel_pack(dense, 0, row_ptr, prior, 0, col, limbs,
                                                      "u64", nnz), 20),
-        pack_bound_ms=bound(pack_b)[0], panel_nnz=nnz,
+        pack_plain_ms=time_ms(pack_plain, 3), pack_bound_ms=bound(pack_b)[0], panel_nnz=nnz,
         timed_on=f"the first {w}-column panel of A^2 of Graph 500's SCALE-{PANEL_SCALE} "
                  f"Kronecker graph (draw seed 1): {n} x {w} f32, {nnz} nonzeros")
-    # the plain pack's scratch (the panel's slots) is allocated in each call
-    plain_col = torch.full((cap + 1,), INT32_SENTINEL, **i32)
-    plain_limbs = U64.zeros((cap + 1,), device=dev)
-    row["pack_plain_ms"] = time_ms(pack_plain, 3)
-    del dense, table, col, limbs, plain_col, plain_limbs, want_counts
+    del dense, op, table, col, limbs, plain_table, plain_col, plain_limbs
     torch.cuda.empty_cache()
     print(f"[3] panel_count and panel_pack on {row['timed_on']}: == plain (exact); count "
           f"{row['count_ms']:.4f} ms (plain {row['count_plain_ms']:.4f}, bound "
@@ -497,20 +494,23 @@ def panel_pack_row(dev) -> dict:
     check(panelpack.LAUNCHES == 2 * panels,
           f"the tiled A^2 made {panelpack.LAUNCHES} panel launches, not {2 * panels}")
     check(int(got.nnz) == A2_NNZ_S17, f"nnz(A^2) {int(got.nnz)} != {A2_NNZ_S17}")
-    op = denseacc.plan_dense_acc(a)
-    want = denseacc._sweeps_in_tensor_ops(
-        n, n, "u64", [(lo, min(w, n - lo)) for lo in range(0, n, w)],
-        lambda lo, width: denseacc._panel_dense(op, a, lo, width), None, dev)
+    kernels = panelpack.panel_count, panelpack.panel_pack
+    panelpack.panel_count = panelpack.panel_count_reference
+    panelpack.panel_pack = panelpack.panel_pack_reference
+    try:  # the same sweeps, the plain versions in the kernels' place
+        want = denseacc.spgemm_dense_acc_tiled(a, a, panel_cols=w)
+    finally:
+        panelpack.panel_count, panelpack.panel_pack = kernels
     for name, g, p in zip(("row_ptr", "col_idx", "lo", "hi", "nnz"),
                           (got.row_ptr, got.col_idx, *got.values, got.nnz),
                           (want.row_ptr, want.col_idx, *want.values, want.nnz)):
         compare(f"tiled A^2 {name}", g, p)
     row.update(a2_panels=panels, a2_panel_launches=panelpack.LAUNCHES, a2_nnz=int(got.nnz))
-    del got, want, op
+    del got, want
     torch.cuda.empty_cache()
     print(f"[3] spgemm_auto A^2 of the SCALE-{PANEL_SCALE} graph: denseacc_tiled, {panels} "
           f"panels, {row['a2_panel_launches']} panel launches, nnz {row['a2_nnz']}, == the "
-          f"tensor-op sweeps in every field; {row['a2_ms']:.1f} ms", flush=True)
+          f"sweeps on the plain versions in every field; {row['a2_ms']:.1f} ms", flush=True)
     return row
 
 
@@ -587,9 +587,9 @@ def kernel_inputs(real_graphs, modules, captured):
 
 
 def fresh_outputs(name, args):
-    """The panel kernels write into their arguments (positional, as
-    ``ops/denseacc``'s sweeps pass them): the arguments with fresh outputs
-    in their place, and those outputs.  The count's table and fault word
+    """The panel kernels and their plain versions write into their
+    arguments (positional, as ``ops/denseacc``'s sweeps pass them): the
+    arguments with fresh outputs in their place, and those outputs.  The count's table and fault word
     start at 0, the pack's columns at INT32_SENTINEL and its limbs at 0, as
     the product's slots that no panel fills."""
     from sparsetpu_torch.ops.segments import INT32_SENTINEL
@@ -604,38 +604,28 @@ def fresh_outputs(name, args):
     return args, [args[5], *args[6]]
 
 
+def outputs_of(name, fn, args, kwargs):
+    """The output tensors of ``fn``, a kernel wrapper ``name`` or its plain
+    version, on ``args``: the panel kernels' fresh outputs, which they
+    write in place (``fresh_outputs``), else its result's tensors."""
+    if name in PANEL_KERNELS:
+        args, out = fresh_outputs(name, args)
+        fn(*args, **kwargs)
+        return out
+    return flat_tensors(fn(*args, **kwargs))
+
+
 def plain_version(name, mod, args, kwargs):
     """A kernel wrapper's plain version on the same inputs.  Dense-acc's
     materialises an (nnz, m) gather (82 GB for nell's A^2 against a 5,120
     column panel), so it runs in column blocks of at most 4 GB: each column
     of C reads the same column of P alone, so the blocks join into the
-    same C.  ESC's is the tensor ops of ``ops.spgemm``.  The panel count's
-    is ``count_nonzero`` a row and the exactness max (a fault where a cell
-    is not below 2^24); the panel pack's is the tensor ops' sweep 2
-    (``ops/denseacc._panel_pack_merge``) at the same offsets, into fresh
-    slots (``fresh_outputs``' fill), every slot of the product compared."""
+    same C.  ESC's is the tensor ops of ``ops.spgemm``.  The panel
+    kernels' plain versions write in place, as the kernels do
+    (``outputs_of``)."""
     if name == "spgemm_esc":
         from sparsetpu_torch.ops.spgemm import spgemm_reference
         return spgemm_reference(*args, **kwargs)
-    if name in PANEL_KERNELS:
-        from sparsetpu_torch.ops import denseacc
-        from sparsetpu_torch.ops.segments import INT32_SENTINEL
-
-        dense = args[0]
-        if name == "panel_count":
-            _, _, _, fault, check_exact = args
-            fault = ((~denseacc._exact_f32(dense, "u64")).int() if check_exact
-                     else torch.zeros_like(fault))
-            return [torch.count_nonzero(dense, dim=1).int(), fault]
-        _, lo, row_ptr, prior, p, col_idx, limbs, sr_name, nnz = args
-        cap = col_idx.numel()
-        # slot cap takes the tensor ops' slots past the panel's entries
-        col = torch.full((cap + 1,), INT32_SENTINEL, dtype=col_idx.dtype, device=dense.device)
-        plain_limbs = [torch.zeros(cap + 1, dtype=l.dtype, device=dense.device) for l in limbs]
-        denseacc._panel_pack_merge(lambda *_: (dense, None), lo, dense.shape[1], row_ptr,
-                                   prior[p].long(), col, plain_limbs, sr_name,
-                                   denseacc.pow2(max(nnz, 1)))
-        return [col[:cap], *(l[:cap] for l in plain_limbs)]
     ref = getattr(mod, f"{name}_reference")
     if name == "spmm_dense_acc":
         op, p = args[0], args[1]
@@ -657,13 +647,9 @@ def hold_kernels(where, captured, counters, errs):
     for (name, route), (args, kwargs) in sorted(captured.items()):
         mod = named[name][1]
         n_path = mod.LAUNCHES
-        if name in PANEL_KERNELS:  # in place: the kernel writes fresh outputs
-            args, got = fresh_outputs(name, args)
-            getattr(mod, name)(*args, **kwargs)
-        else:
-            got = flat_tensors(getattr(mod, name)(*args, **kwargs))
+        got = outputs_of(name, getattr(mod, name), args, kwargs)
         mod.LAUNCHES = n_path  # a comparison's launch is not the path's
-        want = flat_tensors(plain_version(name, mod, args, kwargs))
+        want = outputs_of(name, lambda *a, **k: plain_version(name, mod, a, k), args, kwargs)
         check(len(got) == len(want), f"{where} {name}: {len(got)} outputs "
               f"!= the plain version's {len(want)}")
         err = max(compare(f"{where} {name} ({route})", g, w) for g, w in zip(got, want))

@@ -4,27 +4,28 @@
 ``ops/denseacc._two_sweeps`` sweeps B's columns in panels: sweep 1 computes
 each dense (n, w) f32 C panel and counts its rows' nonzeros, which give the
 product's row offsets; sweep 2 computes each panel again and writes its
-nonzeros into the product.  On a CUDA card each sweep's work on a panel is
-one launch that reads the panel once:
+nonzeros into the product.  Each sweep's work on a panel is one call, which
+on a CUDA tensor is one launch that reads the panel once:
 
   1. ``panel_count``: row r's nonzeros into row p of an int32 (panels, n)
      count table, and, for the integer semirings, the panel's exactness
-     fault (a cell not below 2^24) OR-ed into an int32 word on the card;
+     fault (a cell not below 2^24) OR-ed into an int32 word on the device;
   2. ``panel_pack``: each nonzero of row r, in row-major order, at slot
      ``row_ptr[r] + prior[p, r] + (its rank in the row)`` of the product:
      its column ``lo + j`` and its value as the semiring's limbs.
 
-Every slot equals the tensor ops' (``ops/denseacc``'s plain sweeps, which
-take CPU tensors) bit for bit.  Replaces no TPU kernel: the JAX package
-packs with ``jnp``, which XLA fuses on the TPU.  Added because in PyTorch
-tensor ops the two sweeps read each panel five times and scattered its
-entries through ~15 int64 passes, 62 % of the device time of Graph 500's
-SCALE-17 A^2 on the H100.
+On a CPU tensor each wrapper runs its plain version instead
+(``panel_count_reference``, ``panel_pack_reference``: tensor ops, which
+take CUDA tensors too), writing the same slots bit for bit; any other
+device raises ValueError.  Replaces no TPU kernel: the JAX package packs
+with ``jnp``, which XLA fuses on the TPU.  Added because in PyTorch tensor
+ops the two sweeps read each panel five times and scattered its entries
+through ~15 int64 passes, 62 % of the device time of Graph 500's SCALE-17
+A^2 on the H100.
 
-The wrappers take CUDA tensors alone (ValueError otherwise); the one
-dispatch is ``ops/denseacc._two_sweeps``, by the device.  Under a profiler
-each launch is the span ``kernel/<entry point> bytes=<int>`` (``obs``; the
-kernel is ``<entry point>_kernel``), with the bytes from the rules below.
+Under a profiler each launch is the span ``kernel/<entry point>
+bytes=<int>`` (``obs``; the kernel is ``<entry point>_kernel``), with the
+bytes from the rules below.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import obs
+from ..csr import F32_EXACT_LIMIT
 from . import _build
 
 LAUNCHES = 0  # launches of panel_count and panel_pack (CUDA tensors only): two a panel
@@ -76,9 +78,12 @@ def _check_table(name: str, table: torch.Tensor, p: int, n: int, device) -> None
         raise ValueError(f"panel {p} outside the {name}'s {table.shape[0]} rows")
 
 
-def _on_card(device) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"the panel kernels run on a CUDA card, not {device}")
+def _on_cpu(name: str, device) -> bool:
+    """True on the CPU (the plain version runs), False on a CUDA card (the
+    kernel launches); ValueError on any other device."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    return device.type == "cpu"
 
 
 def _launch(name: str, rule, rule_args, device, *args) -> None:
@@ -93,18 +98,51 @@ def _launch(name: str, rule, rule_args, device, *args) -> None:
     LAUNCHES += 1
 
 
+def panel_count_reference(dense: torch.Tensor, table: torch.Tensor, p: int,
+                          fault: torch.Tensor, check: bool) -> None:
+    """Plain PyTorch ``panel_count`` on any device: the same writes, no
+    launch counted."""
+    table[p] = (dense != 0).sum(dim=1, dtype=torch.int32)
+    if check:
+        fault.bitwise_or_((~(dense < F32_EXACT_LIMIT)).any().int())
+
+
+def panel_pack_reference(dense: torch.Tensor, lo: int, row_ptr: torch.Tensor,
+                         prior: torch.Tensor, p: int, col_idx: torch.Tensor, limbs,
+                         sr_name: str, nnz: int) -> None:
+    """Plain PyTorch ``panel_pack`` on any device: the same slots written,
+    the nonzeros taken in row-major order by ``torch.nonzero``; no launch
+    counted, and ``nnz`` (the span's) not read."""
+    nonzero = dense != 0
+    r, j = torch.nonzero(nonzero, as_tuple=True)
+    counts = nonzero.sum(dim=1)
+    first = torch.cumsum(counts, 0) - counts  # each row's first entry in the panel
+    rank = torch.arange(len(r), device=dense.device) - first[r]
+    dst = row_ptr[r].long() + prior[p, r].long() + rank
+    col_idx[dst] = (j + lo).int()
+    v = dense[r, j]
+    if sr_name == "f32":
+        limbs[0][dst] = v
+        return
+    limbs[0][dst] = v.long()
+    if len(limbs) == 2:
+        limbs[1][dst] = 0
+
+
 def panel_count(dense: torch.Tensor, table: torch.Tensor, p: int, fault: torch.Tensor,
                 check: bool) -> None:
     """Sweep 1 on one panel: ``table[p, r]`` = the nonzeros of the panel's
-    row r; where ``check``, ``fault`` (an int32 on the card) is OR-ed with 1
-    if a cell is not below 2^24 (a NaN included).  One launch, no
-    synchronisation; a panel of no rows launches nothing."""
+    row r; where ``check``, ``fault`` (an int32 on the panel's device) is
+    OR-ed with 1 if a cell is not below 2^24 (a NaN included).  On a CUDA
+    card one launch, no synchronisation (a panel of no rows launches
+    nothing); on the CPU the plain version."""
     _check_panel(dense)
     n, w = dense.shape
     dev = dense.device
     _check_table("the count table", table, p, n, dev)
     _check_tensor("fault", fault, torch.int32, (), dev)
-    _on_card(dev)
+    if _on_cpu("panel_count", dev):
+        return panel_count_reference(dense, table, p, fault, check)
     if n == 0:
         return
     _launch("panel_count", count_bytes, (n, w), dev, dense.data_ptr(), n, w,
@@ -118,7 +156,8 @@ def panel_pack(dense: torch.Tensor, lo: int, row_ptr: torch.Tensor, prior: torch
     r]`` + its rank in the row, as the column ``lo + j`` in ``col_idx`` and
     the value in ``limbs`` (u32: the int64 lo limb; u64: lo and a 0 hi limb;
     f32: the value).  ``nnz``: the panel's entries, for the span's bytes.
-    One launch, no synchronisation; a panel of no rows launches nothing."""
+    On a CUDA card one launch, no synchronisation (a panel of no rows
+    launches nothing); on the CPU the plain version."""
     _check_panel(dense)
     n, w = dense.shape
     dev = dense.device
@@ -135,7 +174,8 @@ def panel_pack(dense: torch.Tensor, lo: int, row_ptr: torch.Tensor, prior: torch
         _check_tensor(f"limb {k}", l, d, (cap,), dev)
     if lo < 0 or lo + w > 2**31:
         raise ValueError(f"columns [{lo}, {lo + w}) do not fit int32")
-    _on_card(dev)
+    if _on_cpu("panel_pack", dev):
+        return panel_pack_reference(dense, lo, row_ptr, prior, p, col_idx, limbs, sr_name, nnz)
     if n == 0:
         return
     n_limbs = 0 if sr_name == "f32" else len(limbs)

@@ -13,9 +13,9 @@ at the end; their cost does not depend on the number of partial products:
   at a time; sweep 1 counts each panel's row nonzeros and so gives the exact
   final row offsets, sweep 2 recomputes each panel and writes its entries
   at per-row offsets (panels own disjoint ascending column ranges, so no
-  global sort).  On a CUDA card each sweep's work on a panel is one
-  hand-written kernel (``kernels/panelpack``, ``csrc/panel_pack.cu``),
-  on the CPU the tensor ops, their plain version;
+  global sort).  Each sweep's work on a panel is one call of a
+  ``kernels/panelpack`` wrapper: a hand-written kernel on a CUDA card
+  (``csrc/panel_pack.cu``), its plain version on the CPU;
 - dense-dense (``spgemm_dense_dense``, ``spgemm_dense_dense_tiled``): both
   operands densified and one matrix product.  JAX computes it outside any
   Pallas kernel, so it stays ``torch.matmul``: fp32 with TF32 off (it raises
@@ -47,14 +47,12 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import obs
 from ..csr import F32_EXACT_LIMIT, SparseCSR
 from ..kernels import panelpack as kpanel
 from ..kernels import spmm as kspmm
-from ..semiring import by_name
 from .segments import INT32_SENTINEL
 from .spgemm import max_value, pow2, symbolic_flops_exact
 
@@ -129,34 +127,25 @@ def _limbs_from_i32(x: torch.Tensor, sr_name: str):
     return (lo,) if sr_name == "u32" else (lo, torch.zeros_like(lo))
 
 
-def _pack(dense: torch.Tensor, sr_name: str, cap: int):
-    """The nonzeros of ``dense`` (n, w) in row-major order, in ``cap``
-    slots: (per-row counts, rows, local columns, limbs, valid slots, total
-    count), int64 indices.  Slots past the total hold row n, column
-    INT32_SENTINEL and value 0; nonzeros past ``cap`` are dropped."""
-    n, w = dense.shape
+def _dense_to_csr_lanesort(dense: torch.Tensor, sr_name: str, cap: int) -> SparseCSR:
+    """Dense carrier (n, m) -> ``SparseCSR`` of capacity ``cap``: the
+    nonzeros in row-major order, so columns ascend in each row; slots past
+    the total hold column INT32_SENTINEL and value 0, and more than ``cap``
+    nonzeros poisons nnz to -1.  ``dense`` is the f32 carrier or, for the
+    wide dense-dense tier, an fp64 one holding integers below 2^31."""
+    n, m = dense.shape
     flat = dense.reshape(-1)
     size = flat.numel()
     pos = torch.nonzero_static(flat != 0, size=cap, fill_value=size)[:, 0]
     valid = pos < size
     val = torch.where(valid, flat[pos.clamp(max=max(size - 1, 0))], 0)
-    rows = torch.where(valid, pos // max(w, 1), n)
-    col = torch.where(valid, pos % max(w, 1), INT32_SENTINEL)
+    col = torch.where(valid, pos % max(m, 1), INT32_SENTINEL)
     counts = torch.count_nonzero(dense, dim=1)
+    total = counts.sum()
     if dense.dtype == torch.float32:
         limbs = _limbs_from_f32(val, sr_name)
     else:
         limbs = _limbs_from_i32(val, sr_name)
-    return counts, rows, col, limbs, valid, counts.sum()
-
-
-def _dense_to_csr_lanesort(dense: torch.Tensor, sr_name: str, cap: int) -> SparseCSR:
-    """Dense carrier (n, m) -> ``SparseCSR`` of capacity ``cap``, columns
-    ascending in each row; more than ``cap`` nonzeros poisons nnz to -1.
-    ``dense`` is the f32 carrier or, for the wide dense-dense tier, an fp64
-    one holding integers below 2^31."""
-    n, m = dense.shape
-    counts, _, col, limbs, _, total = _pack(dense, sr_name, cap)
     rp = torch.cat([counts.new_zeros(1), torch.cumsum(counts, dim=0)]).int()
     return SparseCSR(row_ptr=rp, col_idx=col.int(), values=limbs,
                      nnz=torch.where(total <= cap, total, -1),
@@ -217,105 +206,27 @@ def _panel_dense(op: kspmm.SparseOperand, b: SparseCSR, lo: int, w: int):
     return kspmm.spmm_dense_acc(op, _densify(b, lo, w)), None
 
 
-def _panel_counts(panel_fn, lo: int, w: int, sr_name: str):
-    """Sweep 1 in tensor ops: per-row nonzeros of one panel, and its
-    exactness flag (the output bound and the inputs' flag, if any).
-    ``panel_fn(lo, w)`` computes the dense panel (``_panel_dense`` or
-    ``_mm_panel_dense``) and its inputs' flag or None."""
-    dense, in_ok = panel_fn(lo, w)
-    exact = _exact_f32(dense, sr_name)
-    return torch.count_nonzero(dense, dim=1), exact if in_ok is None else exact & in_ok
-
-
-def _panel_pack_merge(panel_fn, lo: int, w: int, final_row_ptr: torch.Tensor,
-                      prior: torch.Tensor, dst_col: torch.Tensor, dst_limbs, sr_name: str,
-                      cap_p: int) -> torch.Tensor:
-    """Sweep 2 in tensor ops: recompute one dense panel, pack its nonzeros
-    in row-major order and write them into the final arrays at per-row
-    offsets (``final_row_ptr`` + the entries of earlier panels, ``prior``),
-    in place; returns the updated ``prior``."""
-    dense, _ = panel_fn(lo, w)
-    counts, rows, col, limbs, valid, _ = _pack(dense, sr_name, cap_p)
-    r = rows.clamp(max=dense.shape[0] - 1)
-    rp = torch.cat([counts.new_zeros(1), torch.cumsum(counts, dim=0)])
-    s = torch.arange(cap_p, device=dense.device)
-    dest = torch.where(valid, final_row_ptr[r].long() + prior[r] + (s - rp[r]),
-                       dst_col.shape[0] - 1)
-    dst_col[dest] = (col + lo).int()
-    for d, l in zip(dst_limbs, limbs):
-        d[dest] = l
-    return prior + counts
-
-
-def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
-                exact0: Optional[torch.Tensor], device) -> SparseCSR:
-    """The column-panel sweep of the tiled routes: sweep 1 counts every
-    panel and gives the exact final row offsets; sweep 2 recomputes, packs
-    and merges every panel.  ``exact0``: an extra exactness flag (A's input
-    bound), or None.  On a CUDA card each sweep's work on a panel is one
-    hand-written kernel (``kernels/panelpack``, ``_sweeps_on_kernels``);
-    on the CPU it is the tensor ops (``_sweeps_in_tensor_ops``), their plain
-    version.  Under a profiler the sweeps are the spans ``tiled/count`` and
-    ``tiled/pack``; every panel of each counts in ``PANELS``."""
-    panels = [(lo, min(panel_cols, m - lo)) for lo in range(0, m, panel_cols)]
-    sweeps = _sweeps_on_kernels if device.type == "cuda" else _sweeps_in_tensor_ops
-    return sweeps(n, m, sr_name, panels, panel_fn, exact0, device)
-
-
-def _sweeps_in_tensor_ops(n: int, m: int, sr_name: str, panels, panel_fn,
-                          exact0: Optional[torch.Tensor], device) -> SparseCSR:
-    """The two sweeps in tensor ops: the counts fetched to the host at the
-    end of sweep 1, which gives the row offsets there; each panel packed by
-    ``_pack`` and scattered into the product."""
-    global PANELS
-    counts_dev, exact_dev = [], [] if exact0 is None else [exact0]
-    with obs.span("tiled/count"):
-        for lo, w in panels:
-            cts, ex = _panel_counts(panel_fn, lo, w, sr_name)
-            counts_dev.append(cts)
-            exact_dev.append(ex)
-            PANELS += 1
-        with obs.span("sync/panel_counts"):
-            counts_all = (torch.stack(counts_dev).cpu().numpy() if counts_dev
-                          else np.zeros((0, n), np.int64))
-    all_exact = obs.item(torch.stack(exact_dev).all(), "panel_exact") if exact_dev else True
-    nnzp = counts_all.sum(axis=1)
-    total = int(nnzp.sum())
-    _check_total(total)
-    cap = pow2(max(total, 1))
-    cap_p = pow2(max(int(nnzp.max(initial=1)), 1))
-    row_ptr = np.concatenate([[0], np.cumsum(counts_all.sum(axis=0))]).astype(np.int32)
-    with obs.span("tiled/pack"):
-        final_row_ptr = torch.from_numpy(row_ptr).to(device)
-        dst_col = torch.full((cap + 1,), INT32_SENTINEL, dtype=torch.int32, device=device)
-        dst_limbs = by_name(sr_name).zeros((cap + 1,), device=device)  # slot cap: the dump
-        prior = torch.zeros(n, dtype=torch.int64, device=device)
-        for lo, w in panels:
-            prior = _panel_pack_merge(panel_fn, lo, w, final_row_ptr, prior, dst_col,
-                                      dst_limbs, sr_name, cap_p)
-            PANELS += 1
-    return SparseCSR(row_ptr=final_row_ptr, col_idx=dst_col[:cap],
-                     values=tuple(l[:cap] for l in dst_limbs),
-                     nnz=torch.tensor(total if all_exact else -1, dtype=torch.int64,
-                                      device=device),
-                     n_rows=n, n_cols=m, sr_name=sr_name)
-
-
 def _check_total(total: int) -> None:
     if total >= 2**31:
         raise ValueError(f"{total} output entries do not fit int32 row offsets")
 
 
-def _sweeps_on_kernels(n: int, m: int, sr_name: str, panels, panel_fn,
-                       exact0: Optional[torch.Tensor], device) -> SparseCSR:
-    """The two sweeps on the card: sweep 1 counts each panel into an int32
-    (panels, n) table and ORs its exactness fault into one word
-    (``panelpack.panel_count``); the offsets come from the table on the
-    device, and one small read brings the per-panel totals to the host,
-    which sizes the product; sweep 2 (``_pack_sweep``) writes each panel's
-    entries straight into it.  The exactness flag stays on the device and
-    poisons nnz there."""
+def _two_sweeps(n: int, m: int, sr_name: str, panel_cols: int, panel_fn,
+                exact0: Optional[torch.Tensor], device) -> SparseCSR:
+    """The column-panel sweep of the tiled routes.  Sweep 1 computes each
+    panel (``panel_fn(lo, w)``: the dense panel and its inputs' flag or
+    None) and counts it into an int32 (panels, n) table, OR-ing its
+    exactness fault into one word (``panelpack.panel_count``); one small
+    read brings the per-panel totals to the host, which sizes the product.
+    Sweep 2 (``_pack_sweep``) computes each panel again and writes its
+    entries straight into the product.  ``exact0``: an extra exactness flag
+    (A's input bound), or None; the flags stay on the device and poison nnz
+    there.  Each panel's work in a sweep is one ``kernels/panelpack`` call:
+    a hand-written kernel on a CUDA card, its plain version on the CPU.
+    Under a profiler the sweeps are the spans ``tiled/count`` and
+    ``tiled/pack``; every panel of each counts in ``PANELS``."""
     global PANELS
+    panels = [(lo, min(panel_cols, m - lo)) for lo in range(0, m, panel_cols)]
     table = torch.empty((len(panels), n), dtype=torch.int32, device=device)
     fault = torch.zeros((), dtype=torch.int32, device=device)
     flags = [] if exact0 is None else [exact0]
@@ -340,13 +251,13 @@ def _sweeps_on_kernels(n: int, m: int, sr_name: str, panels, panel_fn,
 
 def _pack_sweep(n: int, m: int, sr_name: str, panels, panel_fn, table: torch.Tensor,
                 nnzp, total: int, exact: torch.Tensor, device) -> SparseCSR:
-    """Sweep 2 on the card, with no host read: the row offsets (the
-    exclusive cumsum of the table's column sums) and each panel's offsets
-    in its rows (the table's exclusive cumsum over the panels) on the
-    device, the product allocated at pow2(total) slots, the slots past the
-    total filled (column INT32_SENTINEL, limbs 0), each panel's entries
-    written by ``panelpack.panel_pack``, and nnz poisoned to -1 where
-    ``exact`` (a device bool) is false."""
+    """Sweep 2, with no host read: the row offsets (the exclusive cumsum of
+    the table's column sums) and each panel's offsets in its rows (the
+    table's exclusive cumsum over the panels) on the device, the product
+    allocated at pow2(total) slots, the slots past the total filled (column
+    INT32_SENTINEL, limbs 0), each panel's entries written by
+    ``panelpack.panel_pack``, and nnz poisoned to -1 where ``exact`` (a
+    device bool) is false."""
     global PANELS
     row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=device)
     row_ptr[1:] = torch.cumsum(table.sum(dim=0), dim=0)
@@ -370,11 +281,11 @@ def _pack_sweep(n: int, m: int, sr_name: str, panels, panel_fn, table: torch.Ten
 def spgemm_dense_acc_tiled(a: SparseCSR, b: SparseCSR, panel_cols: int = 8192) -> SparseCSR:
     """C = A x B through column-panel sweeps of the dense accumulator: only
     one (k, panel_cols) B panel and one (n, panel_cols) C panel live at a
-    time.  Sweep 1 runs the SpMM on each panel and keeps its per-row counts,
-    which give the exact final row offsets; sweep 2 recomputes each panel
-    and merges it in place.  u64/u32 exact while every output value < 2^24
-    (checked per panel; a violation poisons nnz to -1); f32 is plain float,
-    summed in the kernel's order."""
+    time.  Sweep 1 runs the SpMM on each panel and counts its rows'
+    nonzeros, which give the exact final row offsets; sweep 2 recomputes
+    each panel and writes its entries into the product.  u64/u32 exact
+    while every output value < 2^24 (checked per panel; a violation poisons
+    nnz to -1); f32 is plain float, summed in the kernel's order."""
     _check_pair(a, b)
     _check_panel_cols(panel_cols)
     op = plan_dense_acc(a)

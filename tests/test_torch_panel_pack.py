@@ -1,17 +1,21 @@
 """The tiled dense routes' count and pack kernels (``kernels/panelpack.py``
-over ``csrc/panel_pack.cu``) and their dispatch in ``ops/denseacc``.
+over ``csrc/panel_pack.cu``), their plain versions and the sweeps of
+``ops/denseacc`` that call them.
 
-The CPU tests hold the dispatch (a CPU panel takes the tensor ops and no
-launch is counted), the wrappers' checks (they take CUDA tensors alone),
-the byte rules, the card's sweeps with the two launches emulated on CPU
-tensors against the tensor ops, and both tiled routes on Graph 500's
+The CPU tests hold the dispatch (a CPU panel runs the plain versions
+through the sweeps and no launch is counted), the wrappers' checks (CPU or
+CUDA tensors, nothing else), the byte rules, the sweeps over given panels
+against one untiled pack of the panels side by side, both tiled routes
+against the untiled ones on empty rows, an all-zero panel, an empty operand
+and a value at 2^24 that poisons nnz, and both tiled routes on Graph 500's
 Kronecker graph at SCALE 9 against the JAX package's, with a ragged last
 panel.  The ``cuda`` tests hold the kernel path against the CPU plain
-version field for field (row offsets, columns, every limb with its padding,
-nnz): u64, u32 and f32 panels (negative values, -0.0) of widths 1, 3, 5, 128
-and 2,048, empty rows, an all-zero panel, an empty operand, a value at 2^24
-that poisons nnz on both routes, two launches a panel, no host read in the
-pack sweep, and the launches' spans with their bytes.  They hold both tiled
+versions through the same sweeps field for field (row offsets, columns,
+every limb with its padding, nnz): u64, u32 and f32 panels (negative
+values, -0.0) of widths 1, 3, 5, 128 and 2,048, empty rows, an all-zero
+panel, an empty operand, a value at 2^24 that poisons nnz on both routes,
+two launches a panel, no host read in the pack sweep, and the launches'
+spans with their bytes.  They hold both tiled
 routes on the card at SCALE 9 against the JAX package's product too,
 through its SHA-256 digest (``KRON9_A2_SHA256``): a CPU test pins the
 digest to the JAX package's product, since the JAX package runs in CPU
@@ -116,23 +120,38 @@ def _sweep(panels, sr_name: str, n: int, m: int, w: int, device) -> SparseCSR:
                           None, torch.device(device))
 
 
-# ---- CPU: dispatch, checks, byte rules, the card's sweeps emulated ---------
+def _assert_same_entries(got: SparseCSR, want: SparseCSR) -> None:
+    """The row offsets, nnz and the entries up to the last row offset (the
+    live ones, also where nnz is poisoned) equal, bit for bit."""
+    assert got.shape == want.shape and int(got.nnz) == int(want.nnz)
+    assert torch.equal(got.row_ptr, want.row_ptr)
+    live = int(got.row_ptr[-1])
+    for g, w in zip((got.col_idx, *got.values), (want.col_idx, *want.values)):
+        g, w = g[:live], w[:live]
+        if g.dtype == torch.float32:  # -0.0 and 0.0 apart
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+# ---- CPU: dispatch, checks, byte rules, the sweeps on the plain versions --
 
 def test_a_cpu_panel_takes_the_tensor_ops_and_counts_no_launch(monkeypatch):
+    """A CPU panel runs the plain versions through ``_two_sweeps``, two
+    calls a panel, and counts no launch."""
     taken = []
-    plain = td._sweeps_in_tensor_ops
+    for name in ("panel_count", "panel_pack"):
+        plain = getattr(kpanel, f"{name}_reference")
 
-    def spy(*args):
-        taken.append(args[2])
-        return plain(*args)
+        def spy(*args, name=name, plain=plain):
+            taken.append(name)
+            return plain(*args)
 
-    monkeypatch.setattr(td, "_sweeps_in_tensor_ops", spy)
-    monkeypatch.setattr(td, "_sweeps_on_kernels", None)  # never reached from the CPU
+        monkeypatch.setattr(kpanel, f"{name}_reference", spy)
     before = kpanel.LAUNCHES
-    a = _kron(8)
+    a = _kron(8)  # 256 columns: three panels of 100
     td.spgemm_dense_acc_tiled(a, a, panel_cols=100).check()
     td.spgemm_dense_dense_tiled(a, a, panel_cols=100).check()
-    assert taken == ["u64", "u64"]
+    assert taken == 2 * (["panel_count"] * 3 + ["panel_pack"] * 3)
     assert kpanel.LAUNCHES == before
 
 
@@ -146,6 +165,13 @@ def _pack_args(n=6, w=5, panels=3, cap=16, sr_name="u64"):
     return (torch.zeros(n, w), 10, torch.zeros(n + 1, dtype=torch.int32),
             torch.zeros(panels, n, dtype=torch.int32), 1,
             torch.zeros(cap, dtype=torch.int32), limbs, sr_name, 0)
+
+
+def _on_meta(args):
+    """The arguments with every tensor, the limbs' included, on ``meta``."""
+    return tuple(a.to("meta") if isinstance(a, torch.Tensor)
+                 else tuple(l.to("meta") for l in a) if isinstance(a, tuple) else a
+                 for a in args)
 
 
 def test_the_wrappers_raise_on_a_wrong_dtype_contiguity_device_or_table_shape():
@@ -164,7 +190,8 @@ def test_the_wrappers_raise_on_a_wrong_dtype_contiguity_device_or_table_shape():
         raises("float32", fn, args, dense=torch.zeros(6, 5, dtype=torch.float64))
         raises("contiguous", fn, args, dense=strided)
         raises("2-D", fn, args, dense=torch.zeros(30))
-        raises("CUDA card, not cpu", fn, args)  # right in all but the device
+        # right in all but the device
+        raises(f"{fn.__name__} runs on cpu or cuda, not meta", fn, _on_meta(args))
     raises(r"\(panels, 6\) table", count, c, table=torch.zeros(3, 7, dtype=torch.int32))
     raises(r"\(panels, 6\) table", count, c, table=torch.zeros(18, dtype=torch.int32))
     raises("int32", count, c, table=torch.zeros(3, 6, dtype=torch.int64))
@@ -207,44 +234,77 @@ def test_the_byte_rules_by_hand():
         assert dtypes == tuple(l.dtype for l in by_name(sr_name).zeros((1,)))
 
 
-def _emulated_count(dense, table, p, fault, check):
-    table[p] = (dense != 0).sum(dim=1).int()
-    if check and not bool((dense < float(1 << 24)).all()):
-        fault.fill_(1)
-
-
-def _emulated_pack(dense, lo, row_ptr, prior, p, col_idx, limbs, sr_name, nnz):
-    r, j = torch.nonzero(dense != 0, as_tuple=True)  # row-major
-    assert len(r) == nnz
-    first = torch.cumsum((dense != 0).sum(dim=1), 0) - (dense != 0).sum(dim=1)
-    dst = row_ptr[r].long() + prior[p][r].long() + torch.arange(len(r)) - first[r]
-    col_idx[dst] = (j + lo).int()
-    v = dense[r, j]
-    if sr_name == "f32":
-        limbs[0][dst] = v
-    else:
-        limbs[0][dst] = v.long()
-        if len(limbs) == 2:
-            limbs[1][dst] = 0
-
-
 @pytest.mark.parametrize("sr_name,poison", [("u64", False), ("u32", False), ("f32", False),
                                             ("u64", True), ("u32", True)])
-def test_the_cards_sweeps_with_emulated_launches_equal_the_tensor_ops(monkeypatch, sr_name,
-                                                                       poison):
-    """The offsets, the product's allocation and padding and the poisoning
-    of ``_sweeps_on_kernels``, with each launch done by tensor ops here (the
-    f32 semiring has no exactness bound to poison)."""
-    monkeypatch.setattr(kpanel, "panel_count", _emulated_count)
-    monkeypatch.setattr(kpanel, "panel_pack", _emulated_pack)
+def test_the_sweeps_over_given_panels_equal_one_untiled_pack_of_them_side_by_side(sr_name,
+                                                                                    poison):
+    """The offsets, the entries and the poisoning of ``_two_sweeps`` over
+    given panels against the untiled pack of the panels side by side, with
+    the same exactness check (the f32 semiring has no bound to poison)."""
     n, m, w = 40, 23, 5
     panels = _panels(sr_name, n, m, w, seed=1, poison=poison)
-    fn = lambda lo, width: (panels[lo // w], None)
-    got = td._sweeps_on_kernels(n, m, sr_name, [(lo, min(w, m - lo)) for lo in range(0, m, w)],
-                                fn, None, torch.device("cpu"))
-    want = _sweep(panels, sr_name, n, m, w, "cpu")
-    _assert_same(got, want)
+    got = _sweep(panels, sr_name, n, m, w, "cpu")
+    whole = torch.cat(panels, 1)
+    want = td._poison(td._dense_to_csr_lanesort(whole, sr_name, got.capacity),
+                      td._exact_f32(whole, sr_name))
+    _assert_same_entries(got, want)
     assert int(got.nnz) == (-1 if poison else sum(int((p != 0).sum()) for p in panels))
+
+
+def _untiled(route):
+    return td.spgemm_dense_acc if route == "acc" else td.spgemm_dense_dense
+
+
+def _tiled(route):
+    return td.spgemm_dense_acc_tiled if route == "acc" else td.spgemm_dense_dense_tiled
+
+
+def _sparse_with_empty_rows_and_a_blank_panel() -> SparseCSR:
+    """200 x 200 u64: rows 0-19 empty, no entry in columns [64, 128), so
+    that panel of its square is all zero at a width of 64."""
+    rng = np.random.default_rng(7)
+    n = 200
+    r, c = rng.integers(20, n, 900), rng.integers(0, n, 900)
+    c = np.where((c >= 64) & (c < 128), c - 64, c)
+    return SparseCSR.from_coo_host(r, c, np.ones(900, np.uint64), n, sr=U64, device="cpu")
+
+
+def _poisoning_pair(top: int):
+    """(A, B), 100 x 100 u64, with (A x B)[3, 70] = 4,096 * ``top``: 2^24 at
+    a ``top`` of 4,096, in the second of three panels of 40 columns."""
+    n = 100
+    a = SparseCSR.from_coo_host(np.array([3, 5, 9, 40]), np.array([3, 70, 41, 9]),
+                                np.array([4096, 1, 2, 7], np.uint64), n, sr=U64, device="cpu")
+    b = SparseCSR.from_coo_host(np.array([3, 41, 9]), np.array([70, 5, 90]),
+                                np.array([top, 3, 1], np.uint64), n, sr=U64, device="cpu")
+    return a, b
+
+
+@pytest.mark.parametrize("route", ["acc", "dense"])
+def test_the_tiled_routes_on_empty_rows_and_an_all_zero_panel_equal_the_untiled(route):
+    a = _sparse_with_empty_rows_and_a_blank_panel()
+    got = _tiled(route)(a, a, panel_cols=64)
+    _assert_same_entries(got, _untiled(route)(a, a))
+    assert int(got.nnz) > 0 and got.row_ptr[20].item() == 0
+
+
+@pytest.mark.parametrize("route", ["acc", "dense"])
+def test_the_tiled_routes_on_an_empty_operand_on_either_side_equal_the_untiled(route):
+    a = _sparse_with_empty_rows_and_a_blank_panel()
+    empty = SparseCSR.empty(a.n_rows, a.n_rows, 8, U64, "cpu")
+    for x, y in ((empty, a), (a, empty)):
+        got = _tiled(route)(x, y, panel_cols=64)
+        _assert_same_entries(got, _untiled(route)(x, y))
+        assert int(got.nnz) == 0 and got.capacity == 1
+
+
+@pytest.mark.parametrize("route", ["acc", "dense"])
+def test_the_tiled_routes_poison_a_value_at_2_24_as_the_untiled(route):
+    for top, poisons in ((4096, True), (4095, False)):
+        a, b = _poisoning_pair(top)
+        got = _tiled(route)(a, b, panel_cols=40)
+        _assert_same_entries(got, _untiled(route)(a, b))
+        assert (int(got.nnz) == -1) == poisons
 
 
 @pytest.fixture(scope="module")
@@ -266,7 +326,7 @@ def kron9_jax():
 def test_the_tiled_routes_on_the_kronecker_toy_equal_the_jax_package(kron9_jax, route,
                                                                      panel_cols):
     a, want = kron9_jax
-    fn = td.spgemm_dense_acc_tiled if route == "acc" else td.spgemm_dense_dense_tiled
+    fn = _tiled(route)
     got = fn(a, a, panel_cols=panel_cols)
     want = want[route]
     assert int(got.nnz) == int(want.nnz) == KRON9_A2_NNZ
@@ -286,11 +346,11 @@ def test_the_jax_packages_kronecker_toy_product_has_the_frozen_digest(kron9_jax)
     assert _digest(want["acc"]) == _digest(want["dense"]) == KRON9_A2_SHA256
 
 
-# ---- CUDA: the kernels against the tensor ops ------------------------------
+# ---- CUDA: the kernels against their plain versions ------------------------
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the panel kernels have no CPU form")
+        pytest.skip("needs a CUDA card: the panel kernels have no interpret mode")
     return torch.device("cuda")
 
 
@@ -315,7 +375,7 @@ def test_cuda_sweeps_equal_the_tensor_ops_field_for_field(sr_name, w):
 @pytest.mark.parametrize("sr", [U64, U32])
 def test_cuda_tiled_routes_equal_the_tensor_ops_on_the_kronecker_graph(route, sr):
     dev = _card()
-    fn = td.spgemm_dense_acc_tiled if route == "acc" else td.spgemm_dense_dense_tiled
+    fn = _tiled(route)
     a = _kron(10, sr)
     before = kpanel.LAUNCHES
     got = fn(_to(a, dev), _to(a, dev), panel_cols=300)  # four panels, the last 124 wide
@@ -330,7 +390,7 @@ def test_cuda_tiled_routes_equal_the_tensor_ops_on_the_kronecker_graph(route, sr
 @pytest.mark.parametrize("panel_cols", [96, 512])  # six panels, the last 32 wide; one
 def test_cuda_tiled_routes_on_the_kronecker_toy_equal_the_jax_package(route, panel_cols):
     dev = _card()
-    fn = td.spgemm_dense_acc_tiled if route == "acc" else td.spgemm_dense_dense_tiled
+    fn = _tiled(route)
     a = _to(_kron(9), dev)
     before = kpanel.LAUNCHES
     got = fn(a, a, panel_cols=panel_cols)
@@ -343,18 +403,13 @@ def test_cuda_tiled_routes_on_the_kronecker_toy_equal_the_jax_package(route, pan
 @pytest.mark.parametrize("route", ["acc", "dense"])
 def test_cuda_empty_rows_an_all_zero_panel_and_an_empty_operand(route):
     dev = _card()
-    fn = td.spgemm_dense_acc_tiled if route == "acc" else td.spgemm_dense_dense_tiled
-    # rows 0-19 of A empty; B without an entry in columns [64, 128): panel 2 all zero
-    rng = np.random.default_rng(7)
-    n = 200
-    r, c = rng.integers(20, n, 900), rng.integers(0, n, 900)
-    c = np.where((c >= 64) & (c < 128), c - 64, c)
-    a = SparseCSR.from_coo_host(r, c, np.ones(900, np.uint64), n, sr=U64, device="cpu")
+    fn = _tiled(route)
+    a = _sparse_with_empty_rows_and_a_blank_panel()
     got = fn(_to(a, dev), _to(a, dev), panel_cols=64)
     want = fn(a, a, panel_cols=64)
     _assert_same(got, want)
     assert int(got.nnz) > 0 and got.row_ptr[20].item() == 0
-    empty = SparseCSR.empty(n, n, 8, U64, "cpu")
+    empty = SparseCSR.empty(a.n_rows, a.n_rows, 8, U64, "cpu")
     for x, y in ((empty, a), (a, empty)):
         got = fn(_to(x, dev), _to(y, dev), panel_cols=64)
         _assert_same(got, fn(x, y, panel_cols=64))
@@ -365,24 +420,14 @@ def test_cuda_empty_rows_an_all_zero_panel_and_an_empty_operand(route):
 @pytest.mark.parametrize("route", ["acc", "dense"])
 def test_cuda_a_value_at_2_24_in_one_panel_poisons_nnz(route):
     dev = _card()
-    fn = td.spgemm_dense_acc_tiled if route == "acc" else td.spgemm_dense_dense_tiled
-    # (A x B)[3, 70] = 4,096 * 4,096 = 2^24, in the second of three panels
-    n = 100
-    a = SparseCSR.from_coo_host(np.array([3, 5, 9, 40]), np.array([3, 70, 41, 9]),
-                                np.array([4096, 1, 2, 7], np.uint64), n, sr=U64, device="cpu")
-
-    def b_with(top):
-        return SparseCSR.from_coo_host(np.array([3, 41, 9]), np.array([70, 5, 90]),
-                                       np.array([top, 3, 1], np.uint64), n, sr=U64,
-                                       device="cpu")
-
-    b = b_with(4096)
+    fn = _tiled(route)
+    a, b = _poisoning_pair(4096)
     got = fn(_to(a, dev), _to(b, dev), panel_cols=40)
     want = fn(a, b, panel_cols=40)
     assert int(want.nnz) == -1
     _assert_same(got, want)
     # the same product one below the bound is kept on both
-    b1 = b_with(4095)
+    a, b1 = _poisoning_pair(4095)
     got = fn(_to(a, dev), _to(b1, dev), panel_cols=40)
     _assert_same(got, fn(a, b1, panel_cols=40))
     assert int(got.nnz) > 0
