@@ -56,7 +56,12 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    each one's device ms, its plain version's and its bound, and the whole
    A^2 through spgemm_auto (denseacc_tiled, 64 panels, 128 panel launches,
    nnz 1,029,215,160, every field equal to the same sweeps' with the plain
-   versions in the kernels' place, on the card);
+   versions in the kernels' place, on the card); on the same panel the
+   dense accumulator's two forms (from B's CSR, equal to its plain version
+   and timed beside it, and from B's panel densified), equal, each timed
+   against its own bound, and the whole A^2
+   in the CSR form (exactly 128 CSR-panel launches) equal in every field to
+   the dense form's;
 4. the port's paths at full scale, each with every kernel count set to 0
    just before it and read just after: the router's dense-acc chain, the
    fold-band chain and the group-dot chain, A^2..A^7 on the 30^3 thinned
@@ -95,7 +100,8 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    launch per graph (the denseacc row); spgemm_auto runs on every sweep
    graph (its route printed, its product against the oracle), and once
    forced to denseacc_tiled on ER 27,000 x 32 (4 panels of 8,192, two
-   dense-acc launches and two panel launches a panel).
+   dense-acc launches and two panel launches a panel).  No chain of the
+   30^3 torus makes a CSR-panel dense-acc launch.
    Then the real-graph study (``bench/real_graphs.py``) on the power-law
    substitutes of cora, nell and ogbn-arxiv at their published sizes: the
    pattern engine's int8 product against a float64 reference (panels with
@@ -108,7 +114,8 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
    and peak memory, at least one coalesce launch per graph and one dense-acc
    launch on nell (A^4); each kernel a step launched held exactly against
    its plain version on the inputs of its first call in the step's timed
-   product (nell A^4: A and a 5,120-column panel of A^3; every slab and
+   product (nell A^4: A and a 5,120-column panel of A^3, in the form the
+   tiled route takes, which is recorded with A^4's time; every slab and
    colchunk step's coalesce streams; an "esc" route's operands on the ESC
    kernels against the tensor ops); cora's band hybrid equal to spgemm_auto's CSR value for value;
    on cora and nell reachability and the diameter on the int8 engine,
@@ -173,6 +180,7 @@ in the checkout, and runs in phases; any failure raises and exits non-zero:
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -337,7 +345,11 @@ PANEL_KERNELS = ("panel_count", "panel_pack")  # csrc/panel_pack.cu's kernels, a
 # each a panel of the tiled routes
 DEVICE_KERNELS = {"spgemm_esc": ESC_KERNELS, "panelpack": PANEL_KERNELS}
 # a counter's wrappers, where they are not named as the counter
-WRAPPERS = {"panelpack": PANEL_KERNELS}
+WRAPPERS = {"panelpack": PANEL_KERNELS,
+            "spmm_dense_acc": ("spmm_dense_acc", "spmm_dense_acc_csr_panel")}
+# the counters whose wrappers are forms of one kernel, a call taking one:
+# held where one of them was (the others hold all of theirs)
+FORMS = {"spmm_dense_acc"}
 
 
 def wrappers_of(modules):
@@ -418,7 +430,14 @@ def panel_pack_row(dev) -> dict:
     the whole A^2 through ``spgemm_auto``: route denseacc_tiled, 64 panels,
     two panel launches a panel, nnz(A^2) the configuration's, every field
     equal to the same sweeps' with the plain versions in the kernels'
-    place, on the card."""
+    place, on the card.  And the two forms of the dense accumulator that
+    make the panels: the first panel from B's CSR
+    (``spmm_dense_acc_csr_panel``, held against its plain version and
+    timed beside it) and from B's panel densified (``spmm_dense_acc``, the
+    densify timed apart), each one's device ms against its own bound
+    (``csr_panel_bytes``; ``launch_bytes``), equal to each other; the whole
+    A^2 takes the CSR form (exactly 128 of its launches) and equals the
+    dense form's in every field."""
     from sparsetpu_torch.csr import SparseCSR
     from sparsetpu_torch.graphs.generate import graph500_kronecker
     from sparsetpu_torch.kernels import panelpack, spmm
@@ -473,19 +492,49 @@ def panel_pack_row(dev) -> dict:
         pack_plain_ms=time_ms(pack_plain, 3), pack_bound_ms=bound(pack_b)[0], panel_nnz=nnz,
         timed_on=f"the first {w}-column panel of A^2 of Graph 500's SCALE-{PANEL_SCALE} "
                  f"Kronecker graph (draw seed 1): {n} x {w} f32, {nnz} nonzeros")
-    del dense, op, table, col, limbs, plain_table, plain_col, plain_limbs
+    del table, col, limbs, plain_table, plain_col, plain_limbs
     torch.cuda.empty_cache()
     print(f"[3] panel_count and panel_pack on {row['timed_on']}: == plain (exact); count "
           f"{row['count_ms']:.4f} ms (plain {row['count_plain_ms']:.4f}, bound "
           f"{row['count_bound_ms']:.4f}), pack {row['pack_ms']:.4f} ms (plain "
           f"{row['pack_plain_ms']:.4f}, bound {row['pack_bound_ms']:.4f})", flush=True)
 
+    # the dense accumulator's two forms on the same panel
+    check(denseacc.csr_panel_form(a), "the cell's B does not take the CSR-panel form")
+    bp = denseacc.plan_csr_panels(op, a, w)
+    counted = dataclasses.replace(op, distinct_cols=int(torch.unique(op.col_idx).numel()))
+    csr_form = spmm.spmm_dense_acc_csr_panel(op, bp, 0)
+
+    def csr_plain():
+        return plain_version("spmm_dense_acc_csr_panel", spmm, (op, bp, 0), {})
+
+    compare("the CSR form's first panel == its plain version", csr_form, csr_plain())
+    compare("the CSR form's first panel == the dense form's", csr_form, dense)
+    del csr_form
+    p0 = denseacc._densify(a, 0, w)
+    row.update(
+        csr_form_ms=time_ms(lambda: spmm.spmm_dense_acc_csr_panel(op, bp, 0), 20),
+        csr_form_plain_ms=time_ms(csr_plain, 2),
+        csr_form_bound_ms=bound(spmm.csr_panel_bytes(op, bp, 0))[0],
+        plan_csr_panels_ms=time_ms(lambda: denseacc.plan_csr_panels(op, a, w), 5),
+        dense_form_ms=time_ms(lambda: spmm.spmm_dense_acc(op, p0), 5),
+        dense_form_bound_ms=bound(spmm.launch_bytes(counted, w))[0],
+        densify_ms=time_ms(lambda: denseacc._densify(a, 0, w), 5))
+    del dense, p0, bp
+    torch.cuda.empty_cache()
+    print(f"[3] dense-acc's two forms on that panel: the CSR form == its plain version == "
+          f"the dense form (exact); CSR form {row['csr_form_ms']:.4f} ms (plain "
+          f"{row['csr_form_plain_ms']:.4f}, bound {row['csr_form_bound_ms']:.4f}; its plan "
+          f"{row['plan_csr_panels_ms']:.4f} ms a product), dense form "
+          f"{row['dense_form_ms']:.4f} ms (bound {row['dense_form_bound_ms']:.4f}) and its "
+          f"densify {row['densify_ms']:.4f} ms", flush=True)
+
     flops = ops_spgemm.symbolic_flops_exact(a, a)
     tiers, route = ops_spgemm.auto_route(a, a, flops)
     panels = -(-n // ops_spgemm.dense_acc_panel_cols(n))
     check(not tiers and route == "denseacc_tiled" and panels == n // w,
           f"spgemm_auto's route {tiers} {route}, {panels} panels: not denseacc_tiled, {n // w}")
-    panelpack.LAUNCHES = 0
+    panelpack.LAUNCHES = spmm.CSR_PANEL_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = ops_spgemm.spgemm_auto(a, a)
@@ -493,6 +542,10 @@ def panel_pack_row(dev) -> dict:
     row["a2_ms"] = (time.perf_counter() - t0) * 1e3
     check(panelpack.LAUNCHES == 2 * panels,
           f"the tiled A^2 made {panelpack.LAUNCHES} panel launches, not {2 * panels}")
+    check(spmm.CSR_PANEL_LAUNCHES == 2 * panels, f"the tiled A^2 made "
+          f"{spmm.CSR_PANEL_LAUNCHES} CSR-panel dense-acc launches, not {2 * panels}")
+    row.update(a2_panels=panels, a2_panel_launches=panelpack.LAUNCHES,
+               a2_csr_panel_launches=spmm.CSR_PANEL_LAUNCHES, a2_nnz=int(got.nnz))
     check(int(got.nnz) == A2_NNZ_S17, f"nnz(A^2) {int(got.nnz)} != {A2_NNZ_S17}")
     kernels = panelpack.panel_count, panelpack.panel_pack
     panelpack.panel_count = panelpack.panel_count_reference
@@ -505,12 +558,30 @@ def panel_pack_row(dev) -> dict:
                           (got.row_ptr, got.col_idx, *got.values, got.nnz),
                           (want.row_ptr, want.col_idx, *want.values, want.nnz)):
         compare(f"tiled A^2 {name}", g, p)
-    row.update(a2_panels=panels, a2_panel_launches=panelpack.LAUNCHES, a2_nnz=int(got.nnz))
+    del want
+    torch.cuda.empty_cache()
+    form = denseacc.csr_panel_form
+    denseacc.csr_panel_form = lambda b: False
+    try:  # the same sweeps on the dense form
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = denseacc.spgemm_dense_acc_tiled(a, a, panel_cols=w)
+        torch.cuda.synchronize()
+        row["a2_dense_form_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        denseacc.csr_panel_form = form
+    for name, g, p in zip(("row_ptr", "col_idx", "lo", "hi", "nnz"),
+                          (got.row_ptr, got.col_idx, *got.values, got.nnz),
+                          (want.row_ptr, want.col_idx, *want.values, want.nnz)):
+        compare(f"tiled A^2 {name}, the CSR form against the dense form", g, p)
     del got, want
     torch.cuda.empty_cache()
     print(f"[3] spgemm_auto A^2 of the SCALE-{PANEL_SCALE} graph: denseacc_tiled, {panels} "
-          f"panels, {row['a2_panel_launches']} panel launches, nnz {row['a2_nnz']}, == the "
-          f"sweeps on the plain versions in every field; {row['a2_ms']:.1f} ms", flush=True)
+          f"panels, {row['a2_panel_launches']} panel launches and "
+          f"{row['a2_csr_panel_launches']} CSR-panel dense-acc launches, nnz {row['a2_nnz']}, "
+          f"== the sweeps on the plain versions and == the dense form's product in every "
+          f"field; {row['a2_ms']:.1f} ms (the dense form {row['a2_dense_form_ms']:.1f} ms)",
+          flush=True)
     return row
 
 
@@ -627,6 +698,20 @@ def plain_version(name, mod, args, kwargs):
         from sparsetpu_torch.ops.spgemm import spgemm_reference
         return spgemm_reference(*args, **kwargs)
     ref = getattr(mod, f"{name}_reference")
+    if name == "spmm_dense_acc_csr_panel":
+        # each of the panel's products materialised: row blocks of at most
+        # 2^27 of them (C's rows are A's rows)
+        op, b, p = args
+        seg = (b.offsets[:, p + 1] - b.offsets[:, p]).long()
+        made = torch.cat([seg.new_zeros(1), torch.cumsum(seg[op.col_idx.long()], 0)])
+        before = made[op.row_ptr.long()].tolist()  # products before each row
+        cuts, start = [], 0
+        for i in range(1, op.n_rows + 1):
+            if before[i] - before[start] > 1 << 27 and i - 1 > start:
+                cuts.append((start, i - 1))
+                start = i - 1
+        cuts.append((start, op.n_rows))
+        return torch.cat([ref(mod.row_slice(op, lo, hi), b, p) for lo, hi in cuts])
     if name == "spmm_dense_acc":
         op, p = args[0], args[1]
         w = max(1, (4 << 30) // (4 * max(op.col_idx.numel(), 1)))
@@ -641,14 +726,16 @@ def hold_kernels(where, captured, counters, errs):
     kwargs)}) again beside its plain version on the same inputs (exact; the
     max |error| into ``errs[wrapper]``; that launch is not counted) and
     release them; returns the counters compared: those whose every wrapper
-    was held."""
+    was held (one, where the wrappers are forms of one kernel: ``FORMS``)."""
     named = wrappers_of(counters)
     held = set()
     for (name, route), (args, kwargs) in sorted(captured.items()):
         mod = named[name][1]
-        n_path = mod.LAUNCHES
+        n_path = mod.LAUNCHES, getattr(mod, "CSR_PANEL_LAUNCHES", 0)
         got = outputs_of(name, getattr(mod, name), args, kwargs)
-        mod.LAUNCHES = n_path  # a comparison's launch is not the path's
+        mod.LAUNCHES = n_path[0]  # a comparison's launch is not the path's
+        if hasattr(mod, "CSR_PANEL_LAUNCHES"):
+            mod.CSR_PANEL_LAUNCHES = n_path[1]
         want = outputs_of(name, lambda *a, **k: plain_version(name, mod, a, k), args, kwargs)
         check(len(got) == len(want), f"{where} {name}: {len(got)} outputs "
               f"!= the plain version's {len(want)}")
@@ -658,12 +745,14 @@ def hold_kernels(where, captured, counters, errs):
         # dense-acc's P (a panel of the right operand), coalesce's first
         # stream, sort-merge's columns, ESC's right operand's row offsets,
         # the panel kernels' dense C panel
-        shown = args[0] if name in PANEL_KERNELS else flat_tensors(args[1])[0]
+        shown = (args[0] if name in PANEL_KERNELS else args[1].offsets
+                 if name == "spmm_dense_acc_csr_panel" else flat_tensors(args[1])[0])
         print(f"[4] {where} {name} on its first call's inputs in the {route} product "
               f"({tuple(shown.shape)}) == the plain version (exact)", flush=True)
         del got, want, args
     captured.clear()
-    return {key for key in counters if all(w in held for w in WRAPPERS.get(key, (key,)))}
+    return {key for key in counters
+            if (any if key in FORMS else all)(w in held for w in WRAPPERS.get(key, (key,)))}
 
 
 def chain_checks(label, a, counters, captured, errs):
@@ -701,6 +790,7 @@ def real_graph_phase(dev, counters, reset_counts):
     from sparsetpu_torch import U64, SparseCSR
     from sparsetpu_torch.bench import real_graphs
     from sparsetpu_torch.graphs import algos as graph_algos, patterns
+    from sparsetpu_torch.kernels import spmm
 
     # the pattern engine's int8 product first, then per graph: cora_pl and
     # nell_pl (the structure report with RCM, A^2..A^4 at --iters 1,
@@ -765,6 +855,17 @@ def real_graph_phase(dev, counters, reset_counts):
         check(counts["coalesce_blocks"] >= 1, f"{label} chain made no coalesce_blocks launch")
         if label == "nell_pl":
             check(counts["spmm_dense_acc"] >= 1, "nell_pl A^4 made no spmm_dense_acc launch")
+            # the tiled route's form: every dense-acc launch of the chain is A^4's
+            csr = spmm.CSR_PANEL_LAUNCHES
+            check(csr in (0, counts["spmm_dense_acc"]), f"nell_pl A^4: {csr} of "
+                  f"{counts['spmm_dense_acc']} dense-acc launches in the CSR-panel form")
+            (a4,) = [d for d in details if d["step"] == 4]
+            entry["a4_tiled_form"] = dict(form="csr_panel" if csr else "dense",
+                                          launches=counts["spmm_dense_acc"],
+                                          seconds=a4["seconds"], algo=a4["algo"])
+            print(f"[4] nell_pl A^4 [{a4['algo']}]: the dense accumulator's "
+                  f"{entry['a4_tiled_form']['form']} form, {counts['spmm_dense_acc']} "
+                  f"launches, {a4['seconds']:.6f} s", flush=True)
         for name in counters:
             rg_launches[name] += counts[name]
         for d in details:
@@ -1267,6 +1368,7 @@ def main() -> None:
     def reset_counts():
         for mod in counters.values():
             mod.LAUNCHES = 0
+        spmm.CSR_PANEL_LAUNCHES = 0
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1898,6 +2000,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         check(counts[kernel] >= STEPS - 1,
               f"{path} chain made {counts[kernel]} {kernel} launches")
+        check(spmm.CSR_PANEL_LAUNCHES == 0,
+              f"{path} chain made {spmm.CSR_PANEL_LAUNCHES} CSR-panel dense-acc launches")
         launches[kernel] = counts[kernel]
         chain_ms[kernel] = sum(r.seconds for r in results) * 1e3
         print(f"[4] {path}: per-step (nnz, max) == oracle == published table; final "
@@ -2073,6 +2177,8 @@ def main() -> None:
           "coalesce_blocks launches over its 3 slab steps")
     check(counts["spmm_dense_acc"] >= 3, f"mixed chain made {counts['spmm_dense_acc']} "
           "spmm_dense_acc launches over its 3 late steps")
+    check(spmm.CSR_PANEL_LAUNCHES == 0,
+          f"mixed chain made {spmm.CSR_PANEL_LAUNCHES} CSR-panel dense-acc launches")
     launches["coalesce_blocks"] = counts["coalesce_blocks"]
     mixed_ms = sum(r.seconds for r in results) * 1e3 + t_dens * 1e3
     print(f"[4] mixed: per-step (nnz, max) == oracle == published table; A^2..A^4 == the "
@@ -2161,9 +2267,10 @@ def main() -> None:
         check(got == EXPECTED, f"{algo} chain (step, nnz, max) {got} != {EXPECTED}")
         # a step is one checked call and chain_iters timed calls
         want_esc = ESC_PER_PRODUCT * (STEPS - 1) * (1 + chain_iters) if algo == "esc" else 0
-        check(counts["spgemm_esc"] == want_esc and not any(
+        check(counts["spgemm_esc"] == want_esc and not spmm.CSR_PANEL_LAUNCHES and not any(
                   n for k, n in counts.items() if k != "spgemm_esc"),
-              f"--algo {algo} launches {counts}, not {want_esc} of ESC's kernels alone")
+              f"--algo {algo} launches {counts} (CSR-panel {spmm.CSR_PANEL_LAUNCHES}), not "
+              f"{want_esc} of ESC's kernels alone")
         if algo == "esc":
             esc_row["esc_chain_launches"] = counts["spgemm_esc"]
         csr_chain = algo in ("esc", "escb")

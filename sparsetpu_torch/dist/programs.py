@@ -431,4 +431,5 @@ def smoke(device, a: HostArrays, steps: int, iters: int, keep: Sequence[int],
         ("spmm_dense_acc", spmm), ("spmm_band", bandplanes), ("spmm_group_dot", groupdot),
         ("sdd_block_scores", blocksparse), ("sortmerge_rows", sortmerge),
         ("coalesce_blocks", coalesce), ("spgemm_esc", esc), ("panelpack", panelpack))}
+    out["launches"]["spmm_dense_acc_csr_panel"] = spmm.CSR_PANEL_LAUNCHES
     return out

@@ -88,6 +88,8 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(LIB)
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.spmm_dense_acc_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
+        lib.spmm_dense_acc_csr_panel_f32.argtypes = [*[vp] * 6, i64, i64, vp, i64, vp, i64,
+                                                     i64, i64, vp]
         lib.spmm_band_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, vp]
         lib.spmm_group_dot_u8.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i32, vp]
         lib.sdd_block_scores_f32.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, vp]
@@ -103,10 +105,11 @@ def load() -> ctypes.CDLL:
         lib.esc_merge_rows.argtypes = [vp, vp, i64, i64, vp, vp]
         lib.panel_count.argtypes = [vp, i64, i64, vp, vp, i32, vp]
         lib.panel_pack.argtypes = [vp, i64, i64, i64, vp, vp, vp, vp, vp, i32, vp]
-        for fn in (lib.spmm_dense_acc_f32, lib.spmm_band_f32, lib.spmm_group_dot_u8,
-                   lib.sdd_block_scores_f32, lib.sortmerge_rows, lib.coalesce_blocks,
-                   lib.esc_counts, lib.esc_expand, lib.esc_merge_tiles, lib.esc_merge_carry,
-                   lib.esc_merge_emit, lib.esc_merge_rows, lib.panel_count, lib.panel_pack):
+        for fn in (lib.spmm_dense_acc_f32, lib.spmm_dense_acc_csr_panel_f32, lib.spmm_band_f32,
+                   lib.spmm_group_dot_u8, lib.sdd_block_scores_f32, lib.sortmerge_rows,
+                   lib.coalesce_blocks, lib.esc_counts, lib.esc_expand, lib.esc_merge_tiles,
+                   lib.esc_merge_carry, lib.esc_merge_emit, lib.esc_merge_rows, lib.panel_count,
+                   lib.panel_pack):
             fn.restype = i32
         for fn in (lib.spmm_dense_acc_max_cols, lib.spmm_band_max_cols,
                    lib.spmm_group_dot_max_cols, lib.sdd_block_scores_max_pairs,

@@ -9,13 +9,18 @@ at the end; their cost does not depend on the number of partial products:
   counterpart of the Pallas ``_spmm_kernel``; on a CPU tensor its plain
   version), then the pack;
 - its column-panel sweep (``spgemm_dense_acc_tiled``): B's columns in panels
-  of ``panel_cols``, so only one (k, w) P panel and one (n, w) C panel live
-  at a time; sweep 1 counts each panel's row nonzeros and so gives the exact
-  final row offsets, sweep 2 recomputes each panel and writes its entries
-  at per-row offsets (panels own disjoint ascending column ranges, so no
-  global sort).  Each sweep's work on a panel is one call of a
-  ``kernels/panelpack`` wrapper: a hand-written kernel on a CUDA card
-  (``csrc/panel_pack.cu``), its plain version on the CPU;
+  of ``panel_cols``, so only one (n, w) C panel lives at a time; sweep 1
+  counts each panel's row nonzeros and so gives the exact final row
+  offsets, sweep 2 recomputes each panel and writes its entries at per-row
+  offsets (panels own disjoint ascending column ranges, so no global sort).
+  Each sweep's work on a panel is one call of a ``kernels/panelpack``
+  wrapper: a hand-written kernel on a CUDA card (``csrc/panel_pack.cu``),
+  its plain version on the CPU.  A panel of C comes from one of two forms
+  of the dense accumulator (``csr_panel_form``): on a sparse integer B its
+  CSR-panel form (``kernels.spmm.spmm_dense_acc_csr_panel``) reads B's
+  entries in the panel from B's CSR through a table of panel offsets
+  (``plan_csr_panels``); otherwise B's (k, w) panel is densified and
+  ``spmm_dense_acc`` gathers its rows;
 - dense-dense (``spgemm_dense_dense``, ``spgemm_dense_dense_tiled``): both
   operands densified and one matrix product.  JAX computes it outside any
   Pallas kernel, so it stays ``torch.matmul``: fp32 with TF32 off (it raises
@@ -206,6 +211,40 @@ def _panel_dense(op: kspmm.SparseOperand, b: SparseCSR, lo: int, w: int):
     return kspmm.spmm_dense_acc(op, _densify(b, lo, w)), None
 
 
+def csr_panel_form(b: SparseCSR) -> bool:
+    """Whether the tiled dense accumulator reads B's panels from B's CSR
+    (``kernels.spmm.spmm_dense_acc_csr_panel``) rather than densifying them:
+    on the u32 and u64 semirings.  The f32 semiring keeps the dense form:
+    its values are not whole numbers, and the dense form sums in a fixed
+    order, where the CSR form's shared-memory atomics do not."""
+    return b.sr_name in ("u32", "u64")
+
+
+def plan_csr_panels(op: kspmm.SparseOperand, b: SparseCSR,
+                    panel_cols: int) -> kspmm.CsrPanels:
+    """B in the CSR-panel form's types for panels of ``panel_cols``, built
+    on B's device: its columns, its values in the f32 carrier, the
+    (k, panels + 1) int32 table of each row's first slot at each panel
+    boundary, by one searchsorted of the boundaries in the (row, col) keys
+    of B's entries (sorted, as every ``SparseCSR``'s are; the slots past
+    nnz sort last), and the kernel's order of A's row blocks (A is ``op``).
+    B's entries in each panel, which each launch's bytes count, are read
+    once (``sync/b_panel_nnz``)."""
+    k, m, dev = b.n_rows, b.n_cols, b.device
+    bounds = torch.arange(0, m + panel_cols, panel_cols, device=dev).clamp_(max=m)
+    slots = torch.arange(b.capacity, device=dev)
+    keys = torch.where(slots < b.nnz, b.row_of_slot() * m + b.col_idx.long(), k * m + 1)
+    queries = torch.arange(k, device=dev)[:, None] * m + bounds[None, :]
+    offsets = torch.searchsorted(keys, queries.reshape(-1), out_int32=True).view(k, -1)
+    rows = kspmm.csr_panel_rows(panel_cols)
+    order = kspmm.csr_panel_order(op, (offsets[:, -1] - offsets[:, 0]).long(), rows)
+    with obs.span("sync/b_panel_nnz"):
+        panel_nnz = tuple(torch.diff(offsets, dim=1).sum(dim=0).tolist())
+    return kspmm.CsrPanels(b.col_idx.contiguous(),
+                           _values_to_f32(b.values, b.sr_name).contiguous(),
+                           offsets, order, rows, m, panel_cols, panel_nnz)
+
+
 def _check_total(total: int) -> None:
     if total >= 2**31:
         raise ValueError(f"{total} output entries do not fit int32 row offsets")
@@ -280,17 +319,22 @@ def _pack_sweep(n: int, m: int, sr_name: str, panels, panel_fn, table: torch.Ten
 @obs.traced("product/denseacc_tiled")
 def spgemm_dense_acc_tiled(a: SparseCSR, b: SparseCSR, panel_cols: int = 8192) -> SparseCSR:
     """C = A x B through column-panel sweeps of the dense accumulator: only
-    one (k, panel_cols) B panel and one (n, panel_cols) C panel live at a
-    time.  Sweep 1 runs the SpMM on each panel and counts its rows'
+    one (n, panel_cols) C panel lives at a time, made by the form
+    ``csr_panel_form`` picks (from B's CSR, or from B's (k, panel_cols)
+    panel densified).  Sweep 1 computes each panel and counts its rows'
     nonzeros, which give the exact final row offsets; sweep 2 recomputes
     each panel and writes its entries into the product.  u64/u32 exact
     while every output value < 2^24 (checked per panel; a violation poisons
-    nnz to -1); f32 is plain float, summed in the kernel's order."""
+    nnz to -1); f32 is plain float, summed in the dense kernel's order."""
     _check_pair(a, b)
     _check_panel_cols(panel_cols)
     op = plan_dense_acc(a)
-    return _two_sweeps(a.n_rows, b.n_cols, a.sr_name, panel_cols,
-                       lambda lo, w: _panel_dense(op, b, lo, w), None, a.device)
+    if csr_panel_form(b):
+        bp = plan_csr_panels(op, b, panel_cols)
+        panel_fn = lambda lo, w: (kspmm.spmm_dense_acc_csr_panel(op, bp, lo // panel_cols), None)
+    else:
+        panel_fn = lambda lo, w: _panel_dense(op, b, lo, w)
+    return _two_sweeps(a.n_rows, b.n_cols, a.sr_name, panel_cols, panel_fn, None, a.device)
 
 
 def _check_tf32() -> None:

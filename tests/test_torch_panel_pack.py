@@ -38,6 +38,7 @@ from sparsetpu_torch.csr import SparseCSR
 from sparsetpu_torch.graphs import generate
 from sparsetpu_torch.interop import carry_csr
 from sparsetpu_torch.kernels import panelpack as kpanel
+from sparsetpu_torch.kernels import spmm as kspmm
 from sparsetpu_torch.ops import denseacc as td
 from sparsetpu_torch.semiring import U32, U64, by_name
 
@@ -466,6 +467,7 @@ def test_cuda_each_launch_is_a_span_with_its_bytes():
     per_panel = [int(((want.col_idx[:int(want.nnz)] >= lo)
                       & (want.col_idx[:int(want.nnz)] < lo + w)).sum())
                  for lo in range(0, n, w)]
+    before = kspmm.LAUNCHES, kspmm.CSR_PANEL_LAUNCHES
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     prof.start()
     try:
@@ -473,6 +475,8 @@ def test_cuda_each_launch_is_a_span_with_its_bytes():
         torch.cuda.synchronize()
     finally:
         prof.stop()
+    # the CSR-panel form (a sparse u64 B): both counters, two launches a panel
+    assert kspmm.LAUNCHES - before[0] == kspmm.CSR_PANEL_LAUNCHES - before[1] == 8
     events = list(prof.events())
     host = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     device = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -482,8 +486,16 @@ def test_cuda_each_launch_is_a_span_with_its_bytes():
                           f"{kpanel.pack_bytes(n, w, nnz, 16)}") == per_panel.count(nnz)
     assert sum("panel_count_kernel" in d for d in device) == 4
     assert sum("panel_pack_kernel" in d for d in device) == 4
+    # each dense-acc launch one span with its bytes (csr_panel_bytes)
+    op = td.plan_dense_acc(a)
+    bp = td.plan_csr_panels(op, a, w)
+    assert sorted(h for h in host if h.startswith(f"{P}kernel/spmm_dense_acc")) == sorted(
+        f"{P}kernel/spmm_dense_acc bytes={kspmm.csr_panel_bytes(op, bp, p)}"
+        for p in range(4) for _ in range(2))
+    assert host.count(P + "sync/b_panel_nnz") == 1
     # the benchmark finds the dense-acc kernel's time by its name alone
     assert sum("spmm_dense_acc_kernel" in d for d in device) == 8
+    assert sum("spmm_dense_acc_kernel_csr_panel" in d for d in device) == 8
     assert not [d for d in device if "panel_" in d and "spmm_dense_acc" in d]
     for span in ("tiled/count", "tiled/pack", "sync/panel_counts"):
         assert host.count(P + span) == 1, span
